@@ -1,0 +1,85 @@
+"""Projection and rigid placement (counterpart of homan_tpu/core/camera.py).
+
+Intrinsics are pinhole K = [[fx,0,cx],[0,fy,cy],[0,0,1]]; "normalized" K
+(`orig_size=1`) maps the image to [0, 1]^2. The `*_det` outputs carry no
+gradient to the mesh geometry (`.detach()` where JAX uses stop_gradient), so
+interaction terms only steer the rigid transform.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def batch_proj2d(verts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3) camera-space points, (B, 3, 3) K -> (B, V, 2) image coords."""
+    proj = verts @ K.transpose(1, 2)
+    return proj[..., :2] / torch.clamp(proj[..., 2:3], min=1e-9)
+
+
+def compute_transformation_persp(meshes, translations, rotations=None,
+                                 intrinsic_scales=None):
+    """scale -> rotate (row vectors, v @ R) -> translate.
+
+    meshes (V, 3) or (B, V, 3); translations (B, 1, 3); rotations (B, 3, 3);
+    intrinsic_scales (B,), (1,) or None. Returns (verts, verts_det).
+    """
+    B = translations.shape[0]
+    if meshes.dim() == 2:
+        meshes = meshes[None].expand((B,) + tuple(meshes.shape))
+    if rotations is None:
+        rotations = torch.eye(3, dtype=meshes.dtype,
+                              device=meshes.device).expand(B, 3, 3)
+    if intrinsic_scales is None:
+        intrinsic_scales = torch.ones(B, dtype=meshes.dtype,
+                                      device=meshes.device)
+    scales = intrinsic_scales.reshape(-1, 1, 1)
+    meshes_scaled = scales * meshes
+    verts = meshes_scaled @ rotations + translations
+    verts_det = meshes_scaled.detach() @ rotations + translations
+    return verts, verts_det
+
+
+def weakcam_to_persp_trans(weak_cams_px, K_px, focal_scale: float = 1.0):
+    """(B, 3) pixel weak-perspective [s, tx, ty] -> (B, 3) translation."""
+    fx = K_px[:, 0, 0] * focal_scale
+    fy = K_px[:, 1, 1] * focal_scale
+    cx, cy = K_px[:, 0, 2], K_px[:, 1, 2]
+    s = weak_cams_px[:, 0]
+    tz = fx / torch.clamp(s, min=1e-9)
+    tx = (weak_cams_px[:, 1] - cx) * tz / fx
+    ty = (weak_cams_px[:, 2] - cy) * tz / fy
+    return torch.stack([tx, ty, tz], dim=-1)
+
+
+def compute_transformation_ortho(meshes, cams, rotations=None,
+                                 intrinsic_scales=None, K=None,
+                                 image_size: int = 640):
+    """HMR-style scaled-orthographic camera -> 3D placement (verts, det)."""
+    B = cams.shape[0]
+    if meshes.dim() == 2:
+        meshes = meshes[None].expand((B,) + tuple(meshes.shape))
+    if rotations is None:
+        rotations = torch.eye(3, dtype=meshes.dtype,
+                              device=meshes.device).expand(B, 3, 3)
+    if intrinsic_scales is None:
+        intrinsic_scales = torch.ones(B, dtype=meshes.dtype,
+                                      device=meshes.device)
+    persp_scale = cams[:, :1] / 2 * image_size
+    persp_trans = (cams[:, 1:] + 1.0 / cams[:, :1]) * persp_scale
+    weak_px = torch.cat([persp_scale, persp_trans], dim=1)
+    K_px = None
+    if K is not None:
+        K_px = torch.cat([K[:, :2] * image_size, K[:, 2:]], dim=1)
+    trans = weakcam_to_persp_trans(weak_px, K_px)[:, None, :]
+    verts_rot = meshes @ rotations
+    verts_rot_det = meshes.detach() @ rotations
+    scales = intrinsic_scales.reshape(-1, 1, 1)
+    return scales * (verts_rot + trans), scales * (verts_rot_det + trans)
+
+
+def normalize_K(K: torch.Tensor, size) -> torch.Tensor:
+    """Divide the first two rows of K by the image size."""
+    K = torch.as_tensor(K, dtype=torch.float32)
+    scale = torch.ones((3, 1), dtype=K.dtype, device=K.device)
+    scale[:2, 0] = 1.0 / size
+    return K * scale

@@ -1,0 +1,234 @@
+"""Loss library for the joint fit (counterpart of homan_tpu/fit/losses.py).
+
+Each term reproduces a reference loss; a zero weight skips its branch, as
+the JAX package prunes it at trace time. This slice ports the terms that
+`DEFAULT_LW` turns on plus the hand silhouette; collision, contact and
+ordinal depth raise NotImplementedError until their slices land.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from homan_tpu_torch.core import camera as cam
+from homan_tpu_torch.fit import model as M
+from homan_tpu_torch.interactions import contact as contact_lib
+from homan_tpu_torch.render.rasterizer import RasterSettings, rasterize_soft
+
+DEFAULT_LW = {
+    "lw_smooth_obj": 2000.0,
+    "lw_smooth_hand": 2000.0,
+    "lw_v2d_hand": 50.0,
+    "lw_inter": 1.0,
+    "lw_contact": 0.0,
+    "lw_depth": 0.0,
+    "lw_pca": 0.004,
+    "lw_sil_obj": 1.0,
+    "lw_sil_hand": 0.0,
+    "lw_collision": 0.0,
+    "lw_scale_obj": 0.001,
+    "lw_scale_hand": 0.001,
+}
+
+# Terms whose kernels and modules come with later slices of the port.
+_LATER_SLICES = {
+    "lw_collision": "the interactions slice (SDF voxelizer, tritri)",
+    "lw_contact": "the interactions slice (SDF voxelizer, contact)",
+    "lw_depth": "the ordinal-depth slice (depth kernels)",
+}
+
+
+def batch_mask_iou(pred, ref, thresh: float = 0.5):
+    """Per-sample IoU of (soft) masks, binarized at `thresh`."""
+    p = pred > thresh
+    r = ref > thresh
+    inter = (p & r).sum(dim=(-2, -1)).to(torch.float32)
+    union = (p | r).sum(dim=(-2, -1)).to(torch.float32)
+    return torch.where(union > 0, inter / torch.clamp(union, min=1.0),
+                       torch.zeros((), device=pred.device))
+
+
+def compute_smooth_loss(verts_hand, verts_obj, hand_nb: int):
+    """Mean squared frame difference; a frame's hands are concatenated along
+    the vertex axis first."""
+    all_hand = torch.cat([verts_hand[i::hand_nb] for i in range(hand_nb)],
+                         dim=1)
+    smooth_hand = ((all_hand[1:] - all_hand[:-1]) ** 2).mean()
+    smooth_obj = ((verts_obj[1:] - verts_obj[:-1]) ** 2).mean()
+    return {"loss_smooth_obj": smooth_obj, "loss_smooth_hand": smooth_hand}
+
+
+def compute_pca_loss(mano_pca_pose):
+    return {"loss_pca": (mano_pca_pose ** 2).mean()}
+
+
+def compute_intrinsic_scale_prior(scales, mean: float = 1.0):
+    return ((scales - mean) ** 2).sum() / scales.shape[0]
+
+
+def compute_v2d_loss_hand(verts_hand, camintr, ref_verts2d, image_size: int,
+                          hand_nb: int):
+    """2D reprojection of all 778 hand vertices."""
+    K = torch.repeat_interleave(camintr, hand_nb, dim=0)
+    pred = cam.batch_proj2d(verts_hand, K)
+    tar = ref_verts2d / image_size
+    loss = ((pred - tar) ** 2).sum(-1).mean()
+    with torch.no_grad():
+        dist_px = torch.linalg.vector_norm(pred * image_size - ref_verts2d,
+                                           dim=-1).mean()
+    return {"loss_v2d_hand": loss}, {"v2d_hand": dist_px}
+
+
+def compute_sil_loss_object(verts_obj, faces_obj, camintr_rois, ref_mask,
+                            keep_mask, settings: RasterSettings):
+    """Occlusion-aware silhouette L2 in the ROI.
+
+    `edge_budget_excess` > 0 at any iteration means contour edges were
+    dropped by the per-tile budget, which corrupts the winding region.
+    """
+    out = rasterize_soft(verts_obj, faces_obj, camintr_rois, settings)
+    image = keep_mask * out["sil"]
+    l_m = ((image - ref_mask) ** 2).sum() / keep_mask.sum()
+    loss = l_m / verts_obj.shape[0]
+    with torch.no_grad():
+        metrics = {
+            "iou_object": batch_mask_iou(image, ref_mask).mean(),
+            "edge_budget_excess": (out["edge_demand"].max()
+                                   - out["edge_capacity"]).to(torch.float32),
+        }
+    return {"loss_sil_obj": loss}, metrics
+
+
+def compute_sil_loss_hand(verts_hand, faces_hand, camintr_rois, ref_mask,
+                          keep_mask, settings: RasterSettings):
+    """Per-hand silhouette L2, batched."""
+    rend = rasterize_soft(verts_hand, faces_hand, camintr_rois,
+                          settings)["sil"]
+    image = keep_mask * rend
+    per = (((image - ref_mask) ** 2).sum(dim=(1, 2))
+           / keep_mask.sum(dim=(1, 2)))
+    return {"loss_sil_hand": per.mean()}
+
+
+def _project_bbox(verts, camintr, expansion: float = 0.2):
+    """Projected 2D bbox with expansion, normalized coords."""
+    uv = cam.batch_proj2d(verts, camintr)
+    lo = uv.amin(dim=1)
+    hi = uv.amax(dim=1)
+    center = (lo + hi) / 2
+    extent = (hi - lo) / 2 * (1 + expansion)
+    return torch.cat([center - extent, center + extent], dim=1)
+
+
+def _bbox_iou_pairwise(b1, b2):
+    a1 = (b1[:, 2] - b1[:, 0]) * (b1[:, 3] - b1[:, 1])
+    a2 = (b2[:, 2] - b2[:, 0]) * (b2[:, 3] - b2[:, 1])
+    lt = torch.maximum(b1[:, :2], b2[:, :2])
+    rb = torch.minimum(b1[:, 2:], b2[:, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[:, 0] * wh[:, 1]
+    return inter / torch.clamp(a1 + a2 - inter, min=1e-9)
+
+
+def compute_interaction_loss(verts_hand_det, verts_obj, camintr, cfg,
+                             z_thresh: float = 3.0, expansion: float = 0.2):
+    """Coarse interaction: per frame and hand, if the projected bboxes
+    overlap and the z-extents are within `z_thresh`, pull the centroids
+    ('centroid') or the closest points ('min') together. Returns the
+    un-normalized sum over interacting pairs, as the reference does."""
+    hand_nb = cfg.hand_nb
+    losses, indicators, min_dists = [], [], []
+    for h in range(hand_nb):
+        vh = verts_hand_det[h::hand_nb]
+        with torch.no_grad():
+            bo = _project_bbox(verts_obj, camintr, expansion)
+            bh = _project_bbox(vh, camintr, expansion)
+            iou = _bbox_iou_pairwise(bo, bh)
+            a = vh[..., 2].amin(dim=1)
+            b = vh[..., 2].amax(dim=1)
+            c = verts_obj[..., 2].amin(dim=1)
+            d = verts_obj[..., 2].amax(dim=1)
+            gap = torch.where((d >= a) & (b >= c), torch.zeros_like(a),
+                              torch.minimum((c - b).abs(), (a - d).abs()))
+            inter = (iou > 0) & (gap < z_thresh)
+        if cfg.inter_type == "centroid":
+            err = ((vh.mean(dim=1) - verts_obj.mean(dim=1)) ** 2).mean(dim=-1)
+        else:  # min
+            err = contact_lib.batch_pairwise_dist2(vh, verts_obj).amin(
+                dim=(1, 2))
+        losses.append(err)
+        indicators.append(inter)
+        with torch.no_grad():
+            d2 = contact_lib.batch_pairwise_dist2(vh, verts_obj)
+            min_dists.append(torch.sqrt(torch.clamp(d2.amin(dim=(1, 2)),
+                                                    min=0.0)))
+    err = torch.stack(losses)
+    ind = torch.stack(indicators)
+    loss = (err * ind).sum()
+    handobj_maxdist = torch.stack(min_dists).amin(dim=0).amax()
+    return {"loss_inter": loss}, {"handobj_maxdist": handobj_maxdist}
+
+
+def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
+                       cfg: M.HomanConfig, lw: Dict[str, float],
+                       roi_settings: RasterSettings | None = None,
+                       ) -> Tuple[Dict, Dict]:
+    """Gated loss and metric dicts (homan_tpu/fit/losses.py:357), in the
+    JAX package's insertion order so weighted sums add up alike."""
+    for key, slice_name in _LATER_SLICES.items():
+        if lw.get(key, 0.0) > 0:
+            raise NotImplementedError(
+                f"{key} > 0 is not ported yet; it comes with {slice_name}")
+    if roi_settings is None:
+        roi_settings = RasterSettings(image_size=cfg.rend_size)
+    loss_dict: Dict[str, torch.Tensor] = {}
+    metric_dict: Dict[str, torch.Tensor] = {}
+
+    verts_object, _ = M.get_verts_object(state, consts)
+    verts_hand, verts_hand_det = M.get_verts_hand(state, consts, cfg)
+
+    if lw["lw_pca"] > 0:
+        loss_dict.update(compute_pca_loss(state.mano_pca_pose))
+    if lw["lw_smooth_hand"] > 0 or lw["lw_smooth_obj"] > 0:
+        loss_dict.update(compute_smooth_loss(verts_hand, verts_object,
+                                             cfg.hand_nb))
+    if lw["lw_v2d_hand"] > 0:
+        l, m = compute_v2d_loss_hand(verts_hand, consts.camintr,
+                                     consts.ref_verts2d_hand, cfg.image_size,
+                                     cfg.hand_nb)
+        loss_dict.update(l)
+        metric_dict.update(m)
+    if lw["lw_sil_obj"] > 0:
+        l, m = compute_sil_loss_object(
+            verts_object, consts.faces_object, consts.camintr_rois_object,
+            consts.ref_mask_object, consts.keep_mask_object, roi_settings)
+        loss_dict.update(l)
+        metric_dict.update(m)
+    if lw["lw_sil_hand"] > 0:
+        loss_dict.update(compute_sil_loss_hand(
+            verts_hand, consts.faces_hand, consts.camintr_rois_hand,
+            consts.ref_mask_hand, consts.keep_mask_hand, roi_settings))
+    if lw["lw_inter"] > 0:
+        obj_for_inter = (verts_object if cfg.optimize_object_scale
+                         else verts_object.detach())
+        l, m = compute_interaction_loss(verts_hand_det, obj_for_inter,
+                                        consts.camintr, cfg)
+        loss_dict.update(l)
+        metric_dict.update(m)
+    if lw["lw_scale_obj"] > 0:
+        loss_dict["loss_scale_obj"] = compute_intrinsic_scale_prior(
+            state.int_scales_object)
+    if lw["lw_scale_hand"] > 0:
+        loss_dict["loss_scale_hand"] = compute_intrinsic_scale_prior(
+            state.int_scales_hand)
+    return loss_dict, metric_dict
+
+
+def weighted_sum(loss_dict: Dict[str, torch.Tensor],
+                 lw: Dict[str, float]) -> torch.Tensor:
+    """Sum of losses, each times its matching lw_ weight."""
+    total = 0.0
+    for k, v in loss_dict.items():
+        total = total + v * lw[k.replace("loss", "lw")]
+    return total

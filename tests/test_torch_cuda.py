@@ -1,0 +1,97 @@
+"""The CUDA shade kernel pair against its plain PyTorch versions, on the
+card. Marked `cuda`; skipped where torch sees no CUDA device. The GPU
+machine has no jax, so this file uses the port alone; run it there with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from homan_tpu_torch.core import mano as tmano
+from homan_tpu_torch.core.meshes import bumpy_potato
+from homan_tpu_torch.render import rasterizer as tr
+from homan_tpu_torch.render import shade
+
+pytestmark = pytest.mark.cuda
+
+
+def raster_mesh(mesh, b=2):
+    """verts (b, V, 3), faces, K (b, 3, 3): the object or the hand, as in
+    tests/test_torch_render.py."""
+    if mesh == "object":
+        v, f = bumpy_potato(2, 0.25, seed=0)
+        offs = np.random.RandomState(0).randn(b, 1, 3).astype(np.float32)
+        verts = v[None] + np.array([0, 0, 1.0], np.float32) + offs * 0.03
+        K = [[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]
+    else:
+        p = tmano.synthetic_mano_params(0, device="cpu")
+        z = torch.zeros(b, 3)
+        out = tmano.mano_forward(p, torch.zeros(b, 10), z, torch.zeros(b, 45))
+        verts = out["verts"].numpy() + np.array([0, 0, 0.5], np.float32)
+        f = p["faces"].numpy()
+        K = [[0.9, 0, 0.5], [0, 0.9, 0.5], [0, 0, 1.0]]
+    K = np.tile(np.array([K], np.float32), (b, 1, 1))
+    return verts.astype(np.float32), f, K
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pack(device, mesh, S, tp, ke):
+    verts, faces, K = raster_mesh(mesh)
+    topo = tr.MeshTopology.from_faces(faces, device=device)
+    settings = tr.RasterSettings(S, tile_px=tp, edges_per_tile=ke)
+    with torch.no_grad():
+        seg, anc, _, static = tr.shade_prep(
+            torch.from_numpy(verts).to(device), topo,
+            torch.from_numpy(K).to(device), settings)
+    return seg, anc, static
+
+
+@pytest.mark.parametrize("case", [("object", 64, 32, 96),
+                                  ("object", 32, 16, 64),
+                                  ("hand", 64, 16, 64),
+                                  ("object", 64, 64, 48)])
+def test_kernels_match_plain(cuda, case):
+    seg, anc, static = _pack(cuda, *case)
+    n0, m0 = shade.shade_fwd_launches, shade.shade_bwd_launches
+    k = shade.shade_fwd(seg, anc, static, want_residuals=True)
+    only = shade.shade_fwd(seg, anc, static, want_residuals=False)[0]
+    p = shade.shade_fwd_plain(seg, anc, static, True)
+    assert shade.shade_fwd_launches == n0 + 2
+    torch.testing.assert_close(k[0], p[0], atol=2e-5, rtol=0)
+    assert torch.equal(only, k[0])
+    same = k[1] == p[1]
+    assert same.float().mean().item() >= 0.999
+    for a, b in zip(k[2:], p[2:]):
+        torch.testing.assert_close(a[same], b[same], atol=1e-6, rtol=0)
+    gcot = torch.randn(k[0].shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    g_k = shade.shade_bwd(k, gcot, static)
+    g_p = shade.shade_bwd_plain(p, gcot, static)
+    assert shade.shade_bwd_launches == m0 + 1
+    scale = g_p.abs().max().item()
+    assert scale > 0
+    assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
+    assert torch.equal(g_k, shade.shade_bwd(k, gcot, static))
+
+
+def test_rasterize_soft_gradient_on_card_matches_cpu(cuda):
+    verts, faces, K = raster_mesh("object")
+    settings = tr.RasterSettings(64, tile_px=32, edges_per_tile=96)
+    grads, sils = [], []
+    for dev in (torch.device("cpu"), cuda):
+        v = torch.from_numpy(verts).to(dev).requires_grad_(True)
+        out = tr.rasterize_soft(v, tr.MeshTopology.from_faces(faces, dev),
+                                torch.from_numpy(K).to(dev), settings)
+        (out["sil"] ** 2).sum().backward()
+        grads.append(v.grad.cpu().numpy())
+        sils.append(out["sil"].detach().cpu().numpy())
+    np.testing.assert_allclose(sils[1], sils[0], atol=2e-5)
+    scale = np.abs(grads[0]).max()
+    assert np.abs(grads[1] - grads[0]).max() <= 3e-3 * scale

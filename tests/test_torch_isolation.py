@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, and its entry points never fall back to the CPU silently."""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "homan_tpu_torch")
+
+_FIT_SCRIPT = """
+import sys
+import numpy as np
+import homan_tpu_torch
+from homan_tpu_torch.fit.joint import optimize_hand_object
+from homan_tpu_torch.frontend.gtsynth import make_synthetic_scene
+from homan_tpu_torch.render import RasterSettings
+
+scene = make_synthetic_scene(np.eye(3, dtype=np.float32), frame_nb=2,
+                             image_size=64, rend_size=32, device="cpu")
+_, hist = optimize_hand_object(
+    scene.init_state, scene.consts, scene.cfg, num_iterations=2,
+    roi_settings=RasterSettings(32, tile_px=16, edges_per_tile=48),
+    device="cpu")
+assert np.isfinite(hist["loss"].numpy()).all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu"))
+print("LOADED", bad)
+"""
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_fit_runs_without_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _FIT_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_sources_never_import_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|homan_tpu)(\s|\.|,|$)"
+        r"|\bhoman_tpu\.|import_module\(\s*['\"](jax|homan_tpu)\b",
+        re.MULTILINE)
+    checked = 0
+    for path in _sources():
+        with open(path) as fh:
+            text = fh.read()
+        hits = [m.group(0) for m in pattern.finditer(text)]
+        assert not hits, (path, hits)
+        checked += 1
+    assert checked > 10
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from homan_tpu_torch import resolve_device
+    from homan_tpu_torch.core.mano import ManoLayer
+    from homan_tpu_torch.fit.joint import optimize_hand_object
+    from homan_tpu_torch.frontend.gtsynth import make_synthetic_scene
+
+    if not torch.cuda.is_available():  # as this machine is: no patching
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_synthetic_scene(np.eye(3), frame_nb=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ManoLayer.synthetic(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_synthetic_scene(np.eye(3), frame_nb=2)
+    scene = make_synthetic_scene(np.eye(3), frame_nb=2, image_size=64,
+                                 rend_size=32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        optimize_hand_object(scene.init_state, scene.consts, scene.cfg,
+                             num_iterations=1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    import homan_tpu_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False

@@ -1,0 +1,125 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package: numpy extraction of JAX objects and the scenes both sides use."""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+
+
+def to_numpy(x):
+    """JAX dataclass / dict / array tree -> the same tree of numpy arrays."""
+    if x is None:
+        return None
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: to_numpy(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def t2n(x):
+    """torch tensor -> numpy."""
+    return x.detach().cpu().numpy()
+
+
+def jax_obj_rot0(seed: int) -> np.ndarray:
+    """The starting object rotation the JAX scene draws from jax.random."""
+    import jax
+    from homan_tpu.core import geometry as geo
+    return np.asarray(geo.random_rotations(jax.random.PRNGKey(seed), 1))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def scene_pair(seed=0, frame_nb=2, image_size=128, rend_size=64,
+               obj_subdiv=2):
+    """The same synthetic scene built by both packages (CPU), once per
+    worker process."""
+    from homan_tpu.frontend import gtsynth as jgs
+    from homan_tpu_torch.frontend import gtsynth as tgs
+    js = jgs.make_synthetic_scene(seed=seed, frame_nb=frame_nb,
+                                  image_size=image_size, rend_size=rend_size,
+                                  obj_subdiv=obj_subdiv)
+    ts = tgs.make_synthetic_scene(jax_obj_rot0(seed), seed=seed,
+                                  frame_nb=frame_nb, image_size=image_size,
+                                  rend_size=rend_size, obj_subdiv=obj_subdiv,
+                                  device="cpu")
+    return js, ts
+
+
+def port_from_jax(js):
+    """The port's (state, consts, cfg) converted from a JAX scene's data."""
+    from homan_tpu_torch import convert
+    state = convert.state_from_numpy(to_numpy(js.init_state), device="cpu")
+    consts = convert.consts_from_numpy(to_numpy(js.consts), device="cpu")
+    cfg = convert.config_from_dict(dataclasses.asdict(js.cfg))
+    return state, consts, cfg
+
+
+def settings_pair(image_size, tile_px, edges_per_tile=48):
+    """Matching raster settings: the JAX side runs its Pallas kernel in
+    interpret mode, as tests/test_pallas_shade.py does."""
+    from homan_tpu.render import RasterSettings as JS
+    from homan_tpu_torch.render import RasterSettings as TS
+    return (JS(image_size=image_size, tile_px=tile_px,
+               edges_per_tile=edges_per_tile, use_pallas=True),
+            TS(image_size=image_size, tile_px=tile_px,
+               edges_per_tile=edges_per_tile))
+
+
+def assert_grad_close(ours, theirs, rel=3e-3, name=""):
+    """|ours - theirs| <= rel * max|theirs| (the JAX package's own band)."""
+    ours = np.asarray(ours, np.float64)
+    theirs = np.asarray(theirs, np.float64)
+    scale = max(np.abs(theirs).max(), 1e-30)
+    err = np.abs(ours - theirs).max() / scale
+    assert err <= rel, f"{name}: max err {err:.3g} of max > {rel}"
+
+
+def _object_mesh(b=2, seed=0):
+    from homan_tpu.core.meshes import bumpy_potato
+    v, f = bumpy_potato(2, 0.25, seed=0)
+    rng = np.random.RandomState(seed)
+    offs = rng.randn(b, 1, 3).astype(np.float32) * 0.03
+    verts = (v[None] + np.array([0, 0, 1.0], np.float32) + offs).astype(
+        np.float32)
+    K = np.tile(np.array([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]],
+                         np.float32), (b, 1, 1))
+    return verts, f, K
+
+
+def _hand_mesh(b=2):
+    import jax
+    import jax.numpy as jnp
+    from homan_tpu.core import mano as jmano
+    p = jmano.synthetic_mano_params(0)
+    out = jax.vmap(lambda r: jmano.mano_forward(
+        p, jnp.zeros(10), r, jnp.zeros(45)))(jnp.zeros((b, 3)))
+    verts = np.asarray(out["verts"]) + np.array([0, 0, 0.5], np.float32)
+    K = np.tile(np.array([[[0.9, 0, 0.5], [0, 0.9, 0.5], [0, 0, 1.0]]],
+                         np.float32), (b, 1, 1))
+    return verts.astype(np.float32), np.asarray(p["faces"]), K
+
+
+# (mesh, image size, tile, edges per tile): the headline's shape class at
+# test size, and the evidence renders' tile 16.
+CASES = [("object", 64, 32, 96), ("object", 32, 16, 64),
+         ("hand", 64, 16, 64)]
+
+
+def raster_mesh(mesh):
+    """verts (2, V, 3), faces, K (2, 3, 3) of the object or the hand."""
+    return _object_mesh() if mesh == "object" else _hand_mesh()
+
+
+def raster_case(mesh, S, tp, ke):
+    """Mesh, both packages' topologies and matching raster settings."""
+    from homan_tpu.render import rasterizer as jr
+    from homan_tpu_torch.render import rasterizer as tr
+    verts, faces, K = raster_mesh(mesh)
+    jtopo = jr.MeshTopology.from_faces(faces)
+    ttopo = tr.MeshTopology.from_faces(faces, device="cpu")
+    jset, tset = settings_pair(S, tp, ke)
+    return verts, K, jtopo, ttopo, jset, tset
