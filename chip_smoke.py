@@ -6,18 +6,35 @@ against their plain PyTorch versions.
 
 Phases, each fatal on failure:
   1. set-up: card, power limit, versions; TF32 off; build every CUDA kernel
-     from homan_tpu_torch/render/csrc (nvcc, sm_90a).
-  2. kernels vs plain versions on the card, on the packs the port's prep
-     builds at the headline fit's shape (30 frames, 256^2, tile 128; Ke 48
-     and the Ke the fit runs, sized from the measured contour-edge demand
-     as the JAX package's auto_edge_settings does) and at the evidence
-     renders' (tile 16): values, argmin agreement, forward-only mode,
-     gradients; CUDA-event medians of both.
-  3. the slice: the synthetic 30-frame scene and the 400-step stage-C fit,
-     twice, with the launch counts of each kernel read around the second
-     run; losses finite and falling, no edge-budget overflow; a 10-step
-     torch.profiler window; then a small fit run on the card and on the
-     CPU from the same inputs must agree.
+     from the package's csrc/ directories (nvcc, sm_90a, one process per
+     source, all at once).
+  2. kernels vs plain versions on the card, at the shapes the paths give
+     them, with CUDA-event medians of each:
+     - the shade pair on the packs the port's prep builds at the headline
+       fit's shape (30 frames, 256^2, tile 128; Ke 48 and the Ke the fit
+       runs, sized from the measured contour-edge demand as the JAX
+       package's auto_edge_settings does) and at the evidence renders'
+       (tile 16): values, argmin agreement, forward-only mode, gradients;
+     - the depth pair on the object's and the hand's face packs at the
+       depth fit's shape (10 frames, 512^2, tile 64) at the face budget
+       sized from the measured demand and at the default 256: coverage
+       identical, depth within 1e-6 relative, argmax agreement with ties
+       explained, gpack within 3e-3 of its max, deterministic, zero
+       outside rows 9-11;
+     - the voxelizer on the interaction fit's hand and object at G 32:
+       within 1e-5, inside sets identical.
+  3. the paths, each run twice with every launch count set to 0 just
+     before a run and read just after; losses finite and falling, no
+     edge-budget overflow, a 10-step torch.profiler window each:
+     - the stage-C headline: the 30-frame, 400-step fit;
+     - the interaction fit (bench.py bench_config3, grid SDF, collision
+       1e-3 and contact 1): 10 frames, 400 steps, two voxelizer launches
+       per step;
+     - the ordinal-depth fit (bench.py bench_depth, lw_depth 1): 10
+       frames, 100 steps, object and hand rendered at 512^2 every step,
+       no face-budget overflow at the initial or the final poses;
+     then small fits of each path on the card and on the CPU (plain
+     versions) from the same inputs must agree.
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -37,6 +54,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 FRAMES, ITERS, REND, TILE, KE = 30, 400, 256, 128, 48
+# The interaction fit (bench.py bench_config3, grid SDF) and the
+# ordinal-depth fit (bench.py bench_depth): 10 frames, 512^2 full image.
+FRAMES2, ITERS2, ITERS3, GRID, DEPTH_TILE = 10, 400, 100, 32, 64
+LW_INTER = {"lw_collision": 1e-3, "lw_contact": 1.0}
+LW_DEPTH = {"lw_depth": 1.0}
 # Edge-slot buckets and headroom of the JAX package's auto_edge_settings
 # (homan_tpu/render/rasterizer.py:949,952).
 EDGE_BUCKETS = (48, 64, 96, 128, 192, 256, 384, 512)
@@ -172,24 +194,155 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
     return out
 
 
-def run_fit(torch, joint, scene, settings, iters, device):
-    from homan_tpu_torch.render import shade
-    shade.shade_fwd_launches = 0
-    shade.shade_bwd_launches = 0
+def depth_bounds(face_pack, static):
+    """Least times (ms) of the depth forward and backward on these inputs.
+
+    Forward: bytes = face_pack read, depth and amax written; operations =
+    FWD_OPS_PER_PIXEL_SLOT per pixel and VALID slot of its tile (the kernel
+    loops k < n_hit). Backward: bytes = depth, amax and the cotangent read,
+    gpack written; operations per pixel.
+    """
+    from homan_tpu_torch.render import depth
+    B, T = face_pack.shape[:2]
+    px = B * T * static.tile_px ** 2
+    pack_bytes = face_pack.numel() * 4
+    slot_px = float(face_pack[:, :, 12].sum()) * static.tile_px ** 2
+    fwd = _bound(pack_bytes + px * 8, depth.FWD_OPS_PER_PIXEL_SLOT * slot_px)
+    bwd = _bound(px * 12 + pack_bytes, depth.BWD_OPS_PER_PIXEL * px)
+    return fwd, bwd, slot_px / (px * static.kf)
+
+
+def compare_depth(torch, name, face_pack, static, timed):
+    """Depth kernel pair vs plain versions on one pack; returns numbers."""
+    from homan_tpu_torch.render import depth
+    fp = face_pack.detach().contiguous()
+    k_d, k_a = depth.depth_fwd(fp, static)
+    p_d, p_a = depth.depth_fwd_plain(fp, static)
+    torch.cuda.synchronize()
+    check(torch.equal(k_d > 0, p_d > 0), f"{name}: covered sets differ")
+    covered = p_d > 0
+    check(bool(covered.any()), f"{name}: nothing covered")
+    abs_err = float((k_d - p_d).abs().max())
+    rel = float(((k_d - p_d).abs() / p_d.abs().clamp(min=1e-30))[
+        covered].max())
+    check(rel <= 1e-6, f"{name}: depth rel err {rel} > 1e-6")
+    same = k_a == p_a
+    n_diff = int((~same).sum())
+    agree = 1.0 - n_diff / int(covered.sum())
+    check(agree >= 0.999, f"{name}: amax agrees on {agree:.6f} < 0.999")
+    # Ties: where the winning slots differ, both won with the same depth.
+    tie_err = float((k_d - p_d).abs()[~same].max()) if n_diff else 0.0
+    check(tie_err == 0.0, f"{name}: amax ties differ in depth by {tie_err}")
+
+    gen = torch.Generator(device=fp.device).manual_seed(0)
+    gcot = torch.randn(k_d.shape, generator=gen, device=fp.device)
+    g_k = depth.depth_bwd(k_d, k_a, gcot, static)
+    g_p = depth.depth_bwd_plain(p_d, p_a, gcot, static)
+    torch.cuda.synchronize()
+    g_err = float((g_k - g_p).abs().max())
+    g_scale = float(g_p.abs().max())
+    check(g_scale > 0, f"{name}: plain gradient is all zero")
+    check(g_err <= 3e-3 * g_scale,
+          f"{name}: gpack err {g_err} > 3e-3 of max {g_scale}")
+    check(torch.equal(g_k, depth.depth_bwd(k_d, k_a, gcot, static)),
+          f"{name}: depth backward kernel is not deterministic")
+    outside = torch.cat([g_k[:, :, :9], g_k[:, :, 12:]], dim=2)
+    check(not bool(outside.any()), f"{name}: gpack nonzero outside rows 9-11")
+    (fb, fby), (bb, bby), fill = depth_bounds(fp, static)
+    out = {"depth_abs_err": abs_err, "depth_rel_err": rel,
+           "amax_agree": agree, "gpack_err": g_err,
+           "gpack_max": g_scale, "fwd_bound_ms": fb, "fwd_bound_by": fby,
+           "bwd_bound_ms": bb, "bwd_bound_by": bby,
+           "valid_slot_share": fill,
+           "covered_share": float(covered.float().mean())}
+    if timed:
+        out["fwd_ms"] = time_ms(torch, lambda: depth.depth_fwd(fp, static))
+        out["fwd_plain_ms"] = time_ms(
+            torch, lambda: depth.depth_fwd_plain(fp, static), reps=3,
+            warmup=1)
+        out["bwd_ms"] = time_ms(torch, lambda: depth.depth_bwd(
+            k_d, k_a, gcot, static))
+        out["bwd_plain_ms"] = time_ms(torch, lambda: depth.depth_bwd_plain(
+            p_d, p_a, gcot, static), reps=10)
+    print(f"depth check [{name}] B,T,tp,kf={tuple(fp.shape[:2])},"
+          f"{static.tile_px},{static.kf}: " + json.dumps(out), flush=True)
+    return out
+
+
+def compare_voxelize(torch, name, verts, faces, grid, timed):
+    """Voxelizer kernel vs its plain version on one mesh batch, in the
+    normalized frame build_scene_sdfs hands it; returns numbers."""
+    from homan_tpu_torch.interactions import sdf as S
+    from homan_tpu_torch.interactions import voxelize as V
+    center, scale = S.normalize_to_unit_box(verts)
+    local = ((verts - center) / scale).detach().contiguous()
+    faces = faces.to(verts.device)
+    pack = V.pack_triangles(local, faces)
+    k = V.voxelize_pack(pack, grid)
+    p = S.voxelize_interior_sdf(local, faces, grid)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    check(err <= 1e-5, f"{name}: phi max err {err} > 1e-5")
+    check(torch.equal(k > 0, p > 0), f"{name}: inside sets differ")
+    check(bool((p > 0).any()), f"{name}: no grid point inside")
+    check(torch.equal(k, V.voxelize_pack(pack, grid)),
+          f"{name}: voxelizer is not deterministic")
+    n_ops = (V.OPS_PER_POINT_FACE * local.shape[0] * grid ** 3
+             * faces.shape[0])
+    bound, bound_by = _bound(pack.numel() * 4 + k.numel() * 4, n_ops)
+    out = {"phi_err": err, "inside_share": float((p > 0).float().mean()),
+           "bound_ms": bound, "bound_by": bound_by}
+    if timed:
+        out["ms"] = time_ms(torch, lambda: V.voxelize_pack(pack, grid))
+        out["plain_ms"] = time_ms(torch, lambda: S.voxelize_interior_sdf(
+            local, faces, grid), reps=3, warmup=1)
+    print(f"voxelize check [{name}] B,F,G={local.shape[0]},{faces.shape[0]},"
+          f"{grid}: " + json.dumps(out), flush=True)
+    return out
+
+
+def size_faces(demand, n_faces):
+    """Face slots for a measured per-tile demand: x1.3, the next power of
+    two, at most the mesh's face count (the tile then holds every face)."""
+    need = int(np.ceil(demand * EDGE_SAFETY))
+    return min(1 << max(need - 1, 0).bit_length(), n_faces)
+
+
+def _counter_modules():
+    from homan_tpu_torch.interactions import voxelize
+    from homan_tpu_torch.render import depth, shade
+    return {"shade_fwd": shade, "shade_bwd": shade, "depth_fwd": depth,
+            "depth_bwd": depth, "voxelize": voxelize}
+
+
+def reset_counts():
+    for name, mod in _counter_modules().items():
+        setattr(mod, name + "_launches", 0)
+
+
+def read_counts():
+    return {name: getattr(mod, name + "_launches")
+            for name, mod in _counter_modules().items()}
+
+
+def run_fit(torch, joint, scene, settings, iters, device, **fit_kw):
+    """One fit with every launch count set to 0 just before it and read
+    just after; returns (final, history, wall seconds, counts)."""
+    reset_counts()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, hist = joint.optimize_hand_object(
-        scene.init_state, scene.consts, scene.cfg, num_iterations=iters,
-        roi_settings=settings, device=device)
+        fit_kw.pop("state", scene.init_state), scene.consts,
+        fit_kw.pop("cfg", scene.cfg), num_iterations=iters,
+        roi_settings=settings, device=device, **fit_kw)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (shade.shade_fwd_launches, shade.shade_bwd_launches)
-    return final, {k: v.cpu() for k, v in hist.items()}, wall, launches
+    return final, {k: v.cpu() for k, v in hist.items()}, wall, read_counts()
 
 
-def profile_steps(torch, joint, scene, settings, iters):
+def profile_steps(torch, joint, scene, settings, iters, label, **fit_kw):
     """torch.profiler over `iters` fit steps: wall and device-busy time per
     step, kernel launches per step, and the top device kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -198,9 +351,10 @@ def profile_steps(torch, joint, scene, settings, iters):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        joint.optimize_hand_object(scene.init_state, scene.consts, scene.cfg,
-                                   num_iterations=iters,
-                                   roi_settings=settings, device="cuda")
+        joint.optimize_hand_object(
+            fit_kw.pop("state", scene.init_state), scene.consts,
+            fit_kw.pop("cfg", scene.cfg), num_iterations=iters,
+            roi_settings=settings, device="cuda", **fit_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -216,9 +370,94 @@ def profile_steps(torch, joint, scene, settings, iters):
            "launch_calls_per_step": launches / iters,
            "top_kernels_us_per_step": [
                [e.key[:60], e.self_device_time_total / iters] for e in top]}
-    print("profile (torch.profiler on, adds host time): "
+    print(f"profile [{label}] (torch.profiler on, adds host time): "
           + json.dumps(out), flush=True)
     return out
+
+
+def check_history(hist, label, iou=False):
+    loss = hist["loss"]
+    check(all(bool(np.isfinite(v.numpy()).all()) for v in hist.values()),
+          f"{label}: non-finite loss or metric")
+    check(float(loss[-1]) < float(loss[0]),
+          f"{label}: loss did not fall: {float(loss[0])} -> "
+          f"{float(loss[-1])}")
+    check(float(hist["edge_budget_excess"].max()) <= 0,
+          f"{label}: edge budget overflowed during the fit")
+    if iou:
+        check(float(hist["iou_object"][-1]) > float(hist["iou_object"][0]),
+              f"{label}: object IoU did not improve")
+
+
+def timed_fit_pair(torch, joint, scene, settings, iters, label, expect,
+                   **fit_kw):
+    """The fit twice, counts read around each run; `expect` maps kernel
+    names to the launch count the run must show. Returns (walls, counts
+    of the second run, history of the second run, final state)."""
+    walls = []
+    for i in range(2):
+        final, hist, wall, counts = run_fit(torch, joint, scene, settings,
+                                            iters, "cuda", **dict(fit_kw))
+        walls.append(wall)
+        print(f"{label} run {i + 1}: {iters} steps in {wall:.3f} s "
+              f"({wall / iters * 1e3:.3f} ms/step); launches "
+              + json.dumps(counts), flush=True)
+        check_history(hist, label)
+        for name, n in expect.items():
+            check(counts[name] == n, f"{label}: {name} launched "
+                  f"{counts[name]} times, expected {n}")
+    loss = hist["loss"]
+    print(f"{label}: loss {float(loss[0]):.6f} -> {float(loss[-1]):.6f}; "
+          + ", ".join(f"{k} {float(hist[k][0]):.6g} -> "
+                      f"{float(hist[k][-1]):.6g}"
+                      for k in ("loss_collision", "loss_contact",
+                                "loss_depth", "iou_object") if k in hist),
+          flush=True)
+    if "loss_depth" in hist:
+        active = hist["loss_depth"] > 0
+        print(f"{label}: ordinal-depth term active on {int(active.sum())} "
+              f"of {iters} steps, max {float(hist['loss_depth'].max()):.6g}",
+              flush=True)
+    return walls, counts, hist, final
+
+
+def small_fit_pair(torch, joint, scene, settings, iters, label, expect,
+                   **fit_kw):
+    """The same small fit on the card and on the CPU (plain versions) from
+    the same inputs: totals within rtol 3e-3; kernels launched on the card
+    only."""
+    _, h_gpu, _, l_gpu = run_fit(torch, joint, scene, settings, iters,
+                                 "cuda", **dict(fit_kw))
+    _, h_cpu, _, l_cpu = run_fit(torch, joint, scene, settings, iters,
+                                 "cpu", **dict(fit_kw))
+    for name, n in expect.items():
+        check(l_gpu[name] == n, f"{label}: card {name} launches "
+              f"{l_gpu[name]} != {n}")
+    check(not any(l_cpu.values()), f"{label}: CPU run launched {l_cpu}")
+    rel = float(((h_gpu["loss"] - h_cpu["loss"]).abs()
+                 / h_cpu["loss"].abs()).max())
+    print(f"{label}, card vs CPU plain path: {iters}-step loss max rel err "
+          f"{rel:.3g}", flush=True)
+    check(rel <= 3e-3, f"{label}: card and CPU fits disagree: rel err {rel}")
+    return rel
+
+
+def sized_edges(R, verts, topo, K, settings):
+    """Ke from the measured contour-edge demand, as the JAX package's
+    auto_edge_settings does (x1.3, next bucket)."""
+    demand = R.check_edge_budget(verts, topo, K, settings)
+    need = int(np.ceil(demand["max_demand"] * EDGE_SAFETY))
+    return min(b for b in EDGE_BUCKETS if b >= need), demand
+
+
+def overlap_state(scene):
+    """The ground-truth state with the object moved just in front of the
+    first hand, so the ordinal-depth pairs are active from the start."""
+    import dataclasses
+    gt = scene.gt_state
+    th = gt.translations_hand
+    t = th[::scene.cfg.hand_nb] + th.new_tensor([0.03, 0.0, -0.06])
+    return dataclasses.replace(gt, translations_object=t)
 
 
 def main() -> int:
@@ -227,6 +466,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
         return 1
+    import dataclasses
+
     import homan_tpu_torch
     from homan_tpu_torch import _build
     from homan_tpu_torch.core.meshes import bumpy_potato
@@ -270,10 +511,8 @@ def main() -> int:
     # The headline's 48 slots per tile are too few for this scene (the
     # JAX package's own scene has the same demand): size the fit's slots
     # as auto_edge_settings does, from the demand at the initial poses.
-    demand = R.check_edge_budget(v_obj, c.faces_object,
+    ke_fit, demand = sized_edges(R, v_obj, c.faces_object,
                                  c.camintr_rois_object, headline)
-    need = int(np.ceil(demand["max_demand"] * EDGE_SAFETY))
-    ke_fit = min(b for b in EDGE_BUCKETS if b >= need)
     fit_settings = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=ke_fit)
     print(f"edge budget: demand {demand['max_demand']} at the initial poses "
           f"(Ke {KE} overflows: {demand['overflow']}); the fit runs Ke "
@@ -294,71 +533,187 @@ def main() -> int:
         results[name] = compare_kernels(torch, name, seg, anc, static,
                                         timed=True)
 
-    # 3. The slice: stage-C fit at the headline shape ---------------------------
-    runs = []
-    for i in range(2):
-        final, hist, wall, launches = run_fit(torch, joint, scene,
-                                              fit_settings, ITERS, "cuda")
-        runs.append((wall, launches))
-        print(f"fit run {i + 1}: {ITERS} steps in {wall:.3f} s "
-              f"({wall / ITERS * 1e3:.3f} ms/step); launches shade_fwd="
-              f"{launches[0]} shade_bwd={launches[1]}", flush=True)
-        loss = hist["loss"]
-        check(all(bool(torch.isfinite(v).all()) for v in hist.values()),
-              "non-finite loss or metric")
-        check(float(loss[-1]) < float(loss[0]),
-              f"loss did not fall: {float(loss[0])} -> {float(loss[-1])}")
-        check(float(hist["edge_budget_excess"].max()) <= 0,
-              "edge budget overflowed during the fit")
-        check(launches[0] >= ITERS and launches[1] == ITERS,
-              f"kernels not launched on every step: {launches}")
-    print(f"fit: loss {float(loss[0]):.6f} -> {float(loss[-1]):.6f}; "
-          f"iou_object {float(hist['iou_object'][0]):.4f} -> "
-          f"{float(hist['iou_object'][-1]):.4f}; edge_budget_excess max "
-          f"{float(hist['edge_budget_excess'].max()):.0f}", flush=True)
+    # The interaction and ordinal-depth fits' scene: bench.py's
+    # bench_config3 / bench_depth, 10 frames, 512^2 image, 256^2 ROI, with
+    # the full-image masks the depth term reads.
+    t0 = time.perf_counter()
+    scene2 = make_synthetic_scene(
+        random_rotation(0), seed=0, frame_nb=FRAMES2, image_size=2 * REND,
+        rend_size=REND, obj_mesh=bumpy_potato(3, 0.08, seed=0),
+        with_full_masks=True, device="cuda")
+    torch.cuda.synchronize()
+    print(f"scene 2: {FRAMES2} frames, {2 * REND}^2 masks in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    c2 = scene2.consts
+    with torch.no_grad():
+        v_obj2, _ = M.get_verts_object(scene2.init_state, c2)
+        v_hand2, _ = M.get_verts_hand(scene2.init_state, c2, scene2.cfg)
+    ke2, demand2 = sized_edges(R, v_obj2, c2.faces_object,
+                               c2.camintr_rois_object, headline)
+    roi2 = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=ke2)
+    print(f"scene 2 edge budget: demand {demand2['max_demand']}; fits run "
+          f"Ke {ke2}", flush=True)
+    # Face budget of the depth renders: the JAX default keeps 256 faces
+    # per tile, far below this scene's demand; size Kf from the demand.
+    wide = R.RasterSettings(2 * REND, tile_px=DEPTH_TILE,
+                            faces_per_tile=1 << 20)
+    meshes = {"object": (v_obj2, c2.faces_object),
+              "hand": (v_hand2, c2.faces_hand)}
+    face_demand = {m: R.check_face_budget(v, t, c2.camintr, wide)[
+        "max_demand"] for m, (v, t) in meshes.items()}
+    kf_fit = max(size_faces(face_demand[m], int(t.faces.shape[0]))
+                 for m, (_, t) in meshes.items())
+    full_fit = R.RasterSettings(2 * REND, tile_px=DEPTH_TILE,
+                                faces_per_tile=kf_fit)
+    print("face budget at the initial poses: " + ", ".join(
+        f"{m} demand {face_demand[m]} vs Kf "
+        f"{min(kf_fit, int(t.faces.shape[0]))} (Kf 256 overflows: "
+        f"{face_demand[m] > 256})" for m, (_, t) in meshes.items()),
+        flush=True)
+    depth_results = {}
+    for m, (v, t) in meshes.items():
+        for kf in (kf_fit, 256):
+            st = dataclasses.replace(full_fit, faces_per_tile=kf)
+            with torch.no_grad():
+                fp, _, static = R.depth_prep(v, t, c2.camintr, st)
+            depth_results[(m, kf)] = compare_depth(
+                torch, f"{m}-kf{static.kf}", fp, static, timed=True)
+    vox_results = {
+        "hand": compare_voxelize(torch, "hand", v_hand2,
+                                 scene2.closed_hand_faces, GRID, timed=True),
+        "object": compare_voxelize(torch, "object", v_obj2,
+                                   c2.faces_object.faces, GRID, timed=True)}
+
+    # 3. The paths ----------------------------------------------------------
+    # 3a. The stage-C fit at the headline shape.
+    walls1, counts1, hist, _ = timed_fit_pair(
+        torch, joint, scene, fit_settings, ITERS, "fit",
+        {"shade_fwd": ITERS, "shade_bwd": ITERS, "depth_fwd": 0,
+         "depth_bwd": 0, "voxelize": 0})
     check(float(hist["iou_object"][-1]) > float(hist["iou_object"][0]),
           "object IoU did not improve")
-    fit_launches = runs[1][1]
-    step = profile_steps(torch, joint, scene, fit_settings, 10)
+    step1 = profile_steps(torch, joint, scene, fit_settings, 10, "fit")
 
-    # Kernel path vs plain path: one small scene, fit on the card and on
-    # the CPU from the same inputs (the CPU runs the plain versions).
+    # 3b. The interaction fit, grid SDF (the reference's step-2 recipe).
+    cfg_grid = dataclasses.replace(scene2.cfg, sdf_mode="grid")
+    inter_kw = dict(cfg=cfg_grid, loss_weights=LW_INTER,
+                    closed_hand_faces=scene2.closed_hand_faces)
+    walls2, counts2, _, _ = timed_fit_pair(
+        torch, joint, scene2, roi2, ITERS2, "interaction fit",
+        {"voxelize": 2 * ITERS2, "shade_fwd": ITERS2,
+         "shade_bwd": ITERS2, "depth_fwd": 0, "depth_bwd": 0}, **inter_kw)
+    step2 = profile_steps(torch, joint, scene2, roi2, 10, "interaction fit",
+                          **inter_kw)
+
+    # 3c. The ordinal-depth fit at the sized face budget.
+    depth_kw = dict(loss_weights=LW_DEPTH, full_settings=full_fit)
+    walls3, counts3, hist3, final3 = timed_fit_pair(
+        torch, joint, scene2, roi2, ITERS3, "depth fit",
+        {"depth_fwd": 2 * ITERS3, "depth_bwd": 2 * ITERS3,
+         "shade_fwd": ITERS3, "shade_bwd": ITERS3, "voxelize": 0},
+        **depth_kw)
+    with torch.no_grad():
+        v_obj3, _ = M.get_verts_object(final3, c2)
+        v_hand3, _ = M.get_verts_hand(final3, c2, scene2.cfg)
+    for m, v, t in (("object", v_obj3, c2.faces_object),
+                    ("hand", v_hand3, c2.faces_hand)):
+        b = R.check_face_budget(v, t, c2.camintr, full_fit)
+        print(f"face budget at the final poses: {m} demand "
+              f"{b['max_demand']} vs Kf {b['capacity']}", flush=True)
+        check(not b["overflow"], f"depth fit: {m} face budget overflowed")
+    step3 = profile_steps(torch, joint, scene2, roi2, 10, "depth fit",
+                          **depth_kw)
+
+    # 3d. Kernel paths vs plain paths: small fits on the card and on the
+    # CPU from the same inputs (the CPU runs the plain versions).
     small = make_synthetic_scene(random_rotation(1), seed=1, frame_nb=3,
-                                 image_size=128, rend_size=64, device="cpu")
+                                 image_size=128, rend_size=64,
+                                 with_full_masks=True, device="cpu")
     small_set = R.RasterSettings(64, tile_px=32, edges_per_tile=48)
-    _, h_gpu, _, l_gpu = run_fit(torch, joint, small, small_set, 10, "cuda")
-    _, h_cpu, _, l_cpu = run_fit(torch, joint, small, small_set, 10, "cpu")
-    check(l_gpu == (10, 10) and l_cpu == (0, 0),
-          f"small fit launches gpu={l_gpu} cpu={l_cpu}")
-    rel = float(((h_gpu["loss"] - h_cpu["loss"]).abs()
-                 / h_cpu["loss"].abs()).max())
-    print(f"small fit, card vs CPU plain path: 10-step loss max rel err "
-          f"{rel:.3g}", flush=True)
-    check(rel <= 3e-3, f"card and CPU fits disagree: rel err {rel}")
+    small_fit_pair(torch, joint, small, small_set, 10, "small fit",
+                   {"shade_fwd": 10, "shade_bwd": 10})
+    small_fit_pair(torch, joint, small, small_set, 3,
+                   "small interaction fit", {"voxelize": 6},
+                   cfg=dataclasses.replace(small.cfg, sdf_mode="grid"),
+                   loss_weights=LW_INTER,
+                   closed_hand_faces=small.closed_hand_faces)
+    small_fit_pair(torch, joint, small, small_set, 5, "small depth fit",
+                   {"depth_fwd": 10, "depth_bwd": 10},
+                   state=overlap_state(small), loss_weights=LW_DEPTH,
+                   full_settings=R.RasterSettings(128, tile_px=32,
+                                                  faces_per_tile=2048))
 
     # Result lines ------------------------------------------------------------
     h = results["fit"]
+
+    def mean2(key, rows):
+        return sum(r[key] for r in rows) / len(rows)
+
+    d_rows = [depth_results[(m, kf_fit)] for m in meshes]
+    v_rows = list(vox_results.values())
     kernels = [
         {"name": "shade_fwd", "route": "cuda",
          "source": "homan_tpu_torch/render/csrc/shade.cu",
          "replaces": "homan_tpu/render/pallas_shade.py:86",
-         "launches": fit_launches[0], "max_abs_err": h["sil_err"],
+         "launches": counts1["shade_fwd"], "max_abs_err": h["sil_err"],
          "ms": h["fwd_ms"], "plain_ms": h["fwd_plain_ms"],
          "bound_ms": h["fwd_bound_ms"], "bound_by": h["fwd_bound_by"],
          "library_ms": None},
         {"name": "shade_bwd", "route": "cuda",
          "source": "homan_tpu_torch/render/csrc/shade.cu",
          "replaces": "homan_tpu/render/pallas_shade.py:281",
-         "launches": fit_launches[1], "max_abs_err": h["gseg_err"],
+         "launches": counts1["shade_bwd"], "max_abs_err": h["gseg_err"],
          "ms": h["bwd_ms"], "plain_ms": h["bwd_plain_ms"],
          "bound_ms": h["bwd_bound_ms"], "bound_by": h["bwd_bound_by"],
          "library_ms": None},
+        # The depth pair runs twice per step, on the object's and the
+        # hand's packs: times and bounds are the mean of one launch on each.
+        {"name": "depth_fwd", "route": "cuda",
+         "source": "homan_tpu_torch/render/csrc/depth.cu",
+         "replaces": "homan_tpu/render/pallas_depth.py:56",
+         "launches": counts3["depth_fwd"],
+         "max_abs_err": max(r["depth_abs_err"] for r in d_rows),
+         "ms": mean2("fwd_ms", d_rows), "plain_ms": mean2("fwd_plain_ms",
+                                                          d_rows),
+         "bound_ms": mean2("fwd_bound_ms", d_rows),
+         "bound_by": d_rows[1]["fwd_bound_by"], "library_ms": None},
+        {"name": "depth_bwd", "route": "cuda",
+         "source": "homan_tpu_torch/render/csrc/depth.cu",
+         "replaces": "homan_tpu/render/pallas_depth.py:180",
+         "launches": counts3["depth_bwd"],
+         "max_abs_err": max(r["gpack_err"] for r in d_rows),
+         "ms": mean2("bwd_ms", d_rows), "plain_ms": mean2("bwd_plain_ms",
+                                                          d_rows),
+         "bound_ms": mean2("bwd_bound_ms", d_rows),
+         "bound_by": d_rows[1]["bwd_bound_by"], "library_ms": None},
+        # The voxelizer runs twice per step, on the hand and the object.
+        {"name": "voxelize", "route": "cuda",
+         "source": "homan_tpu_torch/interactions/csrc/voxelize.cu",
+         "replaces": "homan_tpu/interactions/pallas_sdf.py:35",
+         "launches": counts2["voxelize"],
+         "max_abs_err": max(r["phi_err"] for r in v_rows),
+         "ms": mean2("ms", v_rows), "plain_ms": mean2("plain_ms", v_rows),
+         "bound_ms": mean2("bound_ms", v_rows),
+         "bound_by": v_rows[0]["bound_by"], "library_ms": None},
     ]
-    print(json.dumps({"fit": {
-        "frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
-        "ke": ke_fit, "first_wall_s": runs[0][0],
-        "second_wall_s": runs[1][0], "ms_per_step": runs[1][0] / ITERS * 1e3,
-        "profiled": step}}), flush=True)
+    fits = {
+        "fit": {"frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
+                "ke": ke_fit, "first_wall_s": walls1[0],
+                "second_wall_s": walls1[1],
+                "ms_per_step": walls1[1] / ITERS * 1e3, "profiled": step1},
+        "interaction_fit": {
+            "frames": FRAMES2, "iters": ITERS2, "sdf_mode": "grid",
+            "grid": GRID, "ke": ke2, "first_wall_s": walls2[0],
+            "second_wall_s": walls2[1],
+            "ms_per_step": walls2[1] / ITERS2 * 1e3, "profiled": step2},
+        "depth_fit": {
+            "frames": FRAMES2, "iters": ITERS3, "image": 2 * REND,
+            "depth_tile": DEPTH_TILE, "kf": kf_fit,
+            "face_demand": face_demand, "ke": ke2,
+            "first_wall_s": walls3[0], "second_wall_s": walls3[1],
+            "ms_per_step": walls3[1] / ITERS3 * 1e3, "profiled": step3},
+    }
+    print(json.dumps(fits), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,20 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` compiles on its own into `_build/<name>-<hash>.so`
-(plain C interface, no PyTorch headers: seconds per file instead of the
-minutes a torch extension build takes). The hash covers the source, every
-header in `csrc/` and the flags, so an edited kernel rebuilds and an
-unchanged one loads the library built before. `build_all()` starts one nvcc
-per source, all at once, and waits for them together.
+Every `csrc/` directory of the package holds kernel sources
+(`render/csrc/shade.cu`, `render/csrc/depth.cu`,
+`interactions/csrc/voxelize.cu`); source names are unique across them. Each
+`<name>.cu` compiles on its own into `_build/<name>-<hash>.so` (plain C
+interface, no PyTorch headers: seconds per file instead of the minutes a
+torch extension build takes). The hash covers the source, every header in
+its `csrc/` and the flags, so an edited kernel rebuilds and an unchanged one
+loads the library built before. `build_all()` starts one nvcc per source,
+all at once, and waits for them together.
 
-Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false`. The shade kernel's exact
-comparisons (`cross2d == 0`, strict-< argmin ties) must agree bit for bit
-with its plain PyTorch version, which never contracts a*b+c into an FMA.
+Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false`. The kernels' exact
+comparisons (the shade kernel's `cross2d == 0` and strict-< argmin ties,
+the depth kernel's `e >= 0` and strict-> argmax, the voxelizer's crossing
+parity) must agree bit for bit with their plain PyTorch versions, which
+never contract a*b+c into an FMA.
 """
 from __future__ import annotations
 
@@ -21,7 +26,6 @@ import subprocess
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-CSRC_DIR = os.path.join(_PKG_DIR, "render", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -44,15 +48,43 @@ def _nvcc() -> str:
     return path
 
 
+def _source_dirs() -> dict:
+    """Kernel name -> the `csrc/` directory that holds `<name>.cu`."""
+    found = {}
+    for root, dirs, files in os.walk(_PKG_DIR):
+        dirs[:] = sorted(d for d in dirs if d != "_build")
+        if os.path.basename(root) != "csrc":
+            continue
+        for f in files:
+            if f.endswith(".cu"):
+                name = f[:-3]
+                if name in found:
+                    raise RuntimeError(f"kernel source {f} appears in both "
+                                       f"{found[name]} and {root}")
+                found[name] = root
+    return found
+
+
 def sources() -> list:
-    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    return sorted(_source_dirs())
+
+
+def _source(name: str) -> str:
+    dirs = _source_dirs()
+    if name not in dirs:
+        raise RuntimeError(f"no kernel source {name}.cu in any csrc/ of "
+                           f"{_PKG_DIR}")
+    return os.path.join(dirs[name], name + ".cu")
 
 
 def _lib_path(name: str) -> str:
+    src = _source(name)
+    csrc = os.path.dirname(src)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for f in [name + ".cu"] + headers:
-        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+    headers = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                     if f.endswith(".cuh"))
+    for path in [src] + headers:
+        with open(path, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
@@ -60,8 +92,7 @@ def _lib_path(name: str) -> str:
 def _start(name: str, out: str) -> subprocess.Popen:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

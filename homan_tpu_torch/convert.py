@@ -1,10 +1,10 @@
 """Carry the JAX package's data across: numpy dicts -> the port's objects.
 
 The JAX side's HomanState, HomanConsts (MANO params and MeshTopology
-included) and HomanConfig are handed over as numpy arrays in plain dicts
-(field name -> array, nested dicts for the topologies and MANO params), so
-this module needs neither jax nor the JAX package. Both sides then compute
-the same thing from the same values.
+included), HomanConfig and the scene's closed-hand faces are handed over as
+numpy arrays in plain dicts (field name -> array, nested dicts for the
+topologies and MANO params), so this module needs neither jax nor the JAX
+package. Both sides then compute the same thing from the same values.
 """
 from __future__ import annotations
 
@@ -64,3 +64,8 @@ def consts_from_numpy(d: Dict[str, Any], device=None) -> M.HomanConsts:
         else:
             out[f.name] = _tensor(v, dev)
     return M.HomanConsts(**out)
+
+
+def faces_from_numpy(a, device=None) -> torch.Tensor:
+    """(F, 3) int64 faces, e.g. the JAX scene's closed_hand_faces."""
+    return _tensor(a, resolve_device(device))

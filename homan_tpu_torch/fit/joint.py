@@ -58,13 +58,18 @@ def optimize_hand_object(
     loss_weights: Dict[str, float] | None = None,
     num_iterations: int = 400,
     lr: float = 1e-2,
+    closed_hand_faces=None,
     roi_settings=None,
     raster_schedule=None,
     viz_step: int | None = None,
     viz_callback=None,
+    full_settings=None,
     device=None,
 ) -> Tuple[M.HomanState, Dict[str, torch.Tensor]]:
     """Run the joint fit; returns (final_state, loss/metric histories).
+
+    closed_hand_faces: (F, 3) hand topology of the collision and contact
+    terms (needed when lw_collision or lw_contact > 0).
 
     raster_schedule: optional list of (num_iters, RasterSettings) phases
     (coarse-to-fine silhouette softness); overrides num_iterations and
@@ -74,6 +79,10 @@ def optimize_hand_object(
     state) runs after every viz_step iterations of a phase and at the end
     of each phase, except after the last iteration.
 
+    full_settings: the ordinal-depth term's full-image RasterSettings; None
+    keeps the JAX package's default, RasterSettings(image_size=
+    cfg.image_size). Its faces_per_tile bounds the faces binned per tile.
+
     device: where the fit runs (default `cuda`; raises when CUDA is absent).
     state and consts are moved there.
     """
@@ -82,6 +91,9 @@ def optimize_hand_object(
     if loss_weights:
         lw.update(loss_weights)
     consts = consts_to(consts, device)
+    if closed_hand_faces is not None:
+        closed_hand_faces = _to_device(
+            torch.as_tensor(closed_hand_faces), device)
     labels = M.optimizer_param_labels(cfg)
     params = {}
     for name, value in vars(state).items():
@@ -104,7 +116,8 @@ def optimize_hand_object(
         for i in range(1, iters + 1):
             optimizer.zero_grad(set_to_none=True)
             loss_dict, metric_dict = L.compute_all_losses(
-                s, consts, cfg, lw, roi_settings=settings)
+                s, consts, cfg, lw, closed_hand_faces=closed_hand_faces,
+                roi_settings=settings, full_settings=full_settings)
             loss = L.weighted_sum(loss_dict, lw)
             loss.backward()
             optimizer.step()

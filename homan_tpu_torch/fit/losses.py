@@ -1,9 +1,13 @@
 """Loss library for the joint fit (counterpart of homan_tpu/fit/losses.py).
 
 Each term reproduces a reference loss; a zero weight skips its branch, as
-the JAX package prunes it at trace time. This slice ports the terms that
-`DEFAULT_LW` turns on plus the hand silhouette; collision, contact and
-ordinal depth raise NotImplementedError until their slices land.
+the JAX package prunes it at trace time. Every term of the JAX package is
+ported except the triangle-triangle collision (`collision_mode="tritri"`),
+which raises NotImplementedError until its item lands.
+
+Ordinal depth: the reference's own call of this loss never ran
+(homan/homan.py:507 passes no arguments); as in the JAX package it is wired
+to the model renders as HOMan.compute_ordinal_depth_loss intends.
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ import torch
 from homan_tpu_torch.core import camera as cam
 from homan_tpu_torch.fit import model as M
 from homan_tpu_torch.interactions import contact as contact_lib
-from homan_tpu_torch.render.rasterizer import RasterSettings, rasterize_soft
+from homan_tpu_torch.interactions import sdf as sdf_lib
+from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
+                                               rasterize_depth,
+                                               rasterize_soft)
 
 DEFAULT_LW = {
     "lw_smooth_obj": 2000.0,
@@ -31,12 +38,13 @@ DEFAULT_LW = {
     "lw_scale_hand": 0.001,
 }
 
-# Terms whose kernels and modules come with later slices of the port.
-_LATER_SLICES = {
-    "lw_collision": "the interactions slice (SDF voxelizer, tritri)",
-    "lw_contact": "the interactions slice (SDF voxelizer, contact)",
-    "lw_depth": "the ordinal-depth slice (depth kernels)",
-}
+
+
+def _faces_of(topo_or_faces):
+    """Raw (F, 3) faces from either a MeshTopology or a face tensor."""
+    if isinstance(topo_or_faces, MeshTopology):
+        return topo_or_faces.faces
+    return topo_or_faces
 
 
 def batch_mask_iou(pred, ref, thresh: float = 0.5):
@@ -170,29 +178,191 @@ def compute_interaction_loss(verts_hand_det, verts_obj, camintr, cfg,
     return {"loss_inter": loss}, {"handobj_maxdist": handobj_maxdist}
 
 
+def build_interaction_grids(verts_hand_detscale, verts_obj, faces_obj,
+                            closed_hand_faces, hand_nb: int,
+                            sdf_grid: int = 32):
+    """Voxelize each hand and the object once for all SDF terms of a step
+    (the reference shares one SDFSceneLoss, homan/lossutils.py:43-64,
+    112-130); the grids carry no gradient, so sharing them is exact.
+    Layout: [hand_0 .. hand_{H-1}, object]."""
+    hand_verts = [verts_hand_detscale[i::hand_nb] for i in range(hand_nb)]
+    scene_verts = hand_verts + [verts_obj.detach()]
+    scene_faces = [closed_hand_faces] * hand_nb + [faces_obj]
+    grids = sdf_lib.build_scene_sdfs(scene_verts, scene_faces,
+                                     grid_size=sdf_grid)
+    return grids, hand_verts
+
+
+def compute_collision_loss(verts_hand_detscale, verts_obj_det, faces_obj,
+                           closed_hand_faces, hand_nb: int, sdf_grid: int = 32,
+                           grids=None, hand_verts=None):
+    """SDF scene penetration (homan/lossutils.py:43-64). The voxelizer is
+    winding-invariant, so the reference's flipped closed-fist faces for two
+    hands (:54) give the same grids."""
+    if grids is None:
+        grids, hand_verts = build_interaction_grids(
+            verts_hand_detscale, verts_obj_det, faces_obj, closed_hand_faces,
+            hand_nb, sdf_grid)
+    loss, _ = sdf_lib.sdf_penetration_from_grids(
+        hand_verts + [verts_obj_det], grids)
+    return {"loss_collision": loss}
+
+
+def compute_contact_loss_term(verts_hand_detscale, verts_obj, faces_obj,
+                              closed_hand_faces, hand_nb: int,
+                              sdf_grid: int = 32, grids=None,
+                              hand_verts=None):
+    """Contact (homan/lossutils.py:112-130): the shared object grid (the
+    last) sampled at each hand's verts feeds only boolean masks, so sharing
+    it with the collision term is exact."""
+    if grids is None:
+        grids, hand_verts = build_interaction_grids(
+            verts_hand_detscale, verts_obj, faces_obj, closed_hand_faces,
+            hand_nb, sdf_grid)
+    obj_idx = len(grids["phis"]) - 1
+    missed_sum, contact_sum = 0.0, 0.0
+    for h in range(hand_nb):
+        obj_sdf_at_hand = sdf_lib.sample_scene_sdf(grids, obj_idx,
+                                                   hand_verts[h])
+        m, c, _, _ = contact_lib.compute_contact_loss(
+            hand_verts[h], closed_hand_faces, verts_obj, faces_obj,
+            sdf_grid=sdf_grid, obj_sdf_at_hand=obj_sdf_at_hand)
+        missed_sum = missed_sum + m
+        contact_sum = contact_sum + c
+    return {"loss_contact": (missed_sum + contact_sum) / hand_nb}
+
+
+def compute_interaction_sdf_terms(verts_hand_detscale, verts_obj, faces_obj,
+                                  closed_hand_faces, hand_nb: int,
+                                  with_collision: bool, with_contact: bool,
+                                  sdf_mode: str = "grid", sdf_grid: int = 32):
+    """Collision and contact with the SDF work done once per step.
+
+    sdf_mode "grid": the reference's semantics, each mesh voxelized into a
+    G^3 interior grid and sampled trilinearly (the voxelizer kernel runs
+    here). "direct": the exact interior distance at the sampled vertices
+    only (interior_sdf_at_points).
+    """
+    hand_verts = [verts_hand_detscale[i::hand_nb] for i in range(hand_nb)]
+    obj_det = verts_obj.detach()
+    out = {}
+    if sdf_mode == "direct":
+        if with_collision:
+            scene_verts = hand_verts + [obj_det]
+            scene_faces = [closed_hand_faces] * hand_nb + [faces_obj]
+            loss, meta = sdf_lib.sdf_scene_loss_direct(scene_verts,
+                                                       scene_faces)
+            out["loss_collision"] = loss
+            obj_at_hand = [meta["dist_values"][(hand_nb, h)]
+                           for h in range(hand_nb)]
+        else:
+            obj_at_hand = [sdf_lib.interior_sdf_at_points(hv, obj_det,
+                                                          faces_obj)
+                           for hv in hand_verts]
+    elif sdf_mode == "grid":
+        grids, _ = build_interaction_grids(
+            verts_hand_detscale, verts_obj, faces_obj, closed_hand_faces,
+            hand_nb, sdf_grid)
+        if with_collision:
+            out.update(compute_collision_loss(
+                verts_hand_detscale, obj_det, faces_obj, closed_hand_faces,
+                hand_nb, sdf_grid, grids=grids, hand_verts=hand_verts))
+        obj_idx = len(grids["phis"]) - 1
+        obj_at_hand = [sdf_lib.sample_scene_sdf(grids, obj_idx, hv)
+                       for hv in hand_verts]
+    else:
+        raise ValueError(f"unknown sdf_mode {sdf_mode}")
+    if with_contact:
+        missed_sum, contact_sum = 0.0, 0.0
+        for h in range(hand_nb):
+            m, c, _, _ = contact_lib.compute_contact_loss(
+                hand_verts[h], closed_hand_faces, verts_obj, faces_obj,
+                sdf_grid=sdf_grid, obj_sdf_at_hand=obj_at_hand[h])
+            missed_sum = missed_sum + m
+            contact_sum = contact_sum + c
+        out["loss_contact"] = (missed_sum + contact_sum) / hand_nb
+    return out
+
+
+def compute_ordinal_depth_loss(masks, silhouettes, depths):
+    """Ordinal depth (homan/lossutils.py:133-169): penalize pixels where the
+    ground truth puts entity i in front of j and the render disagrees,
+    normalized by the number of i != j pairs with any joint coverage.
+
+    masks (B, N, S, S) bool full-image GT masks; silhouettes, depths: N
+    renders (B, S, S) each, bool coverage and depth.
+    """
+    dev = depths[0].device
+    loss = torch.zeros((), device=dev)
+    num_pairs = torch.zeros((), device=dev)
+    n = len(silhouettes)
+    for i in range(n):
+        for j in range(n):
+            if i == j:
+                continue
+            has_pred = silhouettes[i] & silhouettes[j]
+            pairs = (has_pred.sum(dim=(1, 2)) > 0).sum().to(torch.float32)
+            front_i_gt = masks[:, i] & ~masks[:, j]
+            front_j_pred = depths[j] < depths[i]
+            m = (front_i_gt & front_j_pred & has_pred).to(torch.float32)
+            msum = m.sum()
+            dists = torch.clamp(depths[i] - depths[j], 0.0, 2.0)
+            term = torch.where(
+                msum > 0,
+                (torch.log1p(torch.exp(dists)) * m).sum()
+                / torch.clamp(msum, min=1.0),
+                torch.zeros((), device=dev))
+            loss = loss + term
+            num_pairs = num_pairs + pairs
+    return {"loss_depth": loss / torch.clamp(num_pairs, min=1.0)}
+
+
 def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
                        cfg: M.HomanConfig, lw: Dict[str, float],
+                       closed_hand_faces=None,
                        roi_settings: RasterSettings | None = None,
+                       full_settings: RasterSettings | None = None,
                        ) -> Tuple[Dict, Dict]:
     """Gated loss and metric dicts (homan_tpu/fit/losses.py:357), in the
-    JAX package's insertion order so weighted sums add up alike."""
-    for key, slice_name in _LATER_SLICES.items():
-        if lw.get(key, 0.0) > 0:
-            raise NotImplementedError(
-                f"{key} > 0 is not ported yet; it comes with {slice_name}")
+    JAX package's insertion order so weighted sums add up alike.
+
+    closed_hand_faces: (F, 3) hand topology of the collision and contact
+    terms. full_settings: the full-image depth renders of the ordinal-depth
+    term; None reproduces the JAX default,
+    RasterSettings(image_size=cfg.image_size).
+    """
     if roi_settings is None:
         roi_settings = RasterSettings(image_size=cfg.rend_size)
     loss_dict: Dict[str, torch.Tensor] = {}
     metric_dict: Dict[str, torch.Tensor] = {}
+    with_sdf_terms = lw["lw_collision"] > 0 or lw["lw_contact"] > 0
 
     verts_object, _ = M.get_verts_object(state, consts)
     verts_hand, verts_hand_det = M.get_verts_hand(state, consts, cfg)
+    # The scale-detached variant needs a second MANO pass; only the
+    # collision and contact terms read it (homan/homan.py:432).
+    if with_sdf_terms:
+        verts_hand_detscale, _ = M.get_verts_hand(state, consts, cfg,
+                                                  detach_scale=True)
 
     if lw["lw_pca"] > 0:
         loss_dict.update(compute_pca_loss(state.mano_pca_pose))
     if lw["lw_smooth_hand"] > 0 or lw["lw_smooth_obj"] > 0:
         loss_dict.update(compute_smooth_loss(verts_hand, verts_object,
                                              cfg.hand_nb))
+    if with_sdf_terms:
+        if closed_hand_faces is None:
+            raise ValueError("collision and contact need closed_hand_faces")
+        if cfg.collision_mode == "tritri" and lw["lw_collision"] > 0:
+            raise NotImplementedError(
+                "collision_mode='tritri' (interactions/intersect.py) is not "
+                "ported yet; it is the last bullet of ROADMAP Queue 1 item "
+                "17")
+        loss_dict.update(compute_interaction_sdf_terms(
+            verts_hand_detscale, verts_object, _faces_of(consts.faces_object),
+            _faces_of(closed_hand_faces), cfg.hand_nb,
+            with_collision=lw["lw_collision"] > 0,
+            with_contact=lw["lw_contact"] > 0, sdf_mode=cfg.sdf_mode))
     if lw["lw_v2d_hand"] > 0:
         l, m = compute_v2d_loss_hand(verts_hand, consts.camintr,
                                      consts.ref_verts2d_hand, cfg.image_size,
@@ -222,6 +392,24 @@ def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
     if lw["lw_scale_hand"] > 0:
         loss_dict["loss_scale_hand"] = compute_intrinsic_scale_prior(
             state.int_scales_hand)
+    if lw["lw_depth"] > 0:
+        if full_settings is None:
+            full_settings = RasterSettings(image_size=cfg.image_size)
+        # Hard z-buffer depth and coverage of the object and each hand at
+        # full image size; the loss never reads soft silhouette values.
+        renders = [rasterize_depth(verts_object, consts.faces_object,
+                                   consts.camintr, full_settings)]
+        for h in range(cfg.hand_nb):
+            renders.append(rasterize_depth(verts_hand[h::cfg.hand_nb],
+                                           consts.faces_hand, consts.camintr,
+                                           full_settings))
+        all_masks = torch.stack(
+            [consts.masks_object]
+            + [consts.masks_hand[h::cfg.hand_nb] for h in range(cfg.hand_nb)],
+            dim=1).to(torch.bool)
+        loss_dict.update(compute_ordinal_depth_loss(
+            all_masks, [r["covered"] for r in renders],
+            [r["depth"] for r in renders]))
     return loss_dict, metric_dict
 
 

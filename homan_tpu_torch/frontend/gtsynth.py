@@ -2,7 +2,8 @@
 
 Builds a clip with an object and hand(s) moving smoothly in front of a
 camera, renders the evidence from the ground truth (forward-only shade
-kernel), and perturbs an initial state for the fit to recover.
+kernel), optionally the image-sized entity masks of the ordinal-depth loss,
+and perturbs an initial state for the fit to recover.
 
 The JAX version draws the object's starting rotation from `jax.random`;
 here the caller passes it as `obj_rot0`. Everything else comes from the
@@ -33,6 +34,7 @@ class SyntheticScene:
     init_state: M.HomanState
     gt_verts_object: torch.Tensor  # (B, Vo, 3)
     gt_verts_hand: torch.Tensor    # (B*H, 778, 3)
+    closed_hand_faces: torch.Tensor  # (F, 3) hand topology of the SDF terms
     roi_settings: RasterSettings
 
 
@@ -56,9 +58,12 @@ def make_synthetic_scene(
     perturb: float = 0.04,
     mano_layer: ManoLayer | None = None,
     obj_mesh=None,
+    with_full_masks: bool = False,
     device=None,
 ) -> SyntheticScene:
     """obj_rot0: (3, 3) starting object rotation (row-vector convention).
+    with_full_masks: also render the image-sized entity masks that only the
+    ordinal-depth loss reads (left zero otherwise).
     device: where the scene lives (default `cuda`; raises without CUDA)."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
@@ -175,6 +180,17 @@ def make_synthetic_scene(
         hand_target = torch.where(obj_occl & ~hand_sil, minus_one,
                                   hand_sil.to(torch.float32))
         ref_verts2d = cam.batch_proj2d(gt_verts_hand, rois_hand) * image_size
+        if with_full_masks:
+            full = RasterSettings(image_size=image_size, tile_px=16)
+            masks_object = (rasterize_soft(gt_verts_object, obj_topo,
+                                           camintr, full)["sil"] > 0.5).to(
+                torch.float32)
+            masks_hand = (rasterize_soft(gt_verts_hand, hand_topo,
+                                         rois_hand, full)["sil"] > 0.5).to(
+                torch.float32)
+        else:
+            masks_object = consts_partial.masks_object
+            masks_hand = consts_partial.masks_hand
 
     consts = dataclasses.replace(
         consts_partial,
@@ -184,6 +200,8 @@ def make_synthetic_scene(
         keep_mask_object=(obj_target >= 0).to(torch.float32),
         ref_mask_hand=(hand_target > 0).to(torch.float32),
         keep_mask_hand=(hand_target >= 0).to(torch.float32),
+        masks_object=masks_object,
+        masks_hand=masks_hand,
     )
 
     # --- Perturbed init ------------------------------------------------------
@@ -199,7 +217,9 @@ def make_synthetic_scene(
         rotations_hand=jitter(gt_state.rotations_hand, perturb),
         mano_pca_pose=jitter(gt_state.mano_pca_pose, perturb * 5),
     )
+    # The synthetic hand's faces stand in for the closed-fist topology of
+    # the SDF terms.
     return SyntheticScene(
         consts=consts, cfg=cfg, gt_state=gt_state, init_state=init_state,
         gt_verts_object=gt_verts_object, gt_verts_hand=gt_verts_hand,
-        roi_settings=roi_settings)
+        closed_hand_faces=faces_hand, roi_settings=roi_settings)

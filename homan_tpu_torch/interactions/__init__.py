@@ -1,1 +1,2 @@
-"""Physical interaction terms (this slice: pairwise distances only)."""
+"""Physical interaction terms: interior SDFs and their voxelizer kernel,
+contact and pairwise distances."""

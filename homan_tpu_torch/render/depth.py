@@ -1,0 +1,208 @@
+"""Hard z-buffer depth tiles: CUDA kernel pair + plain versions.
+
+Replaces the TPU kernels `_depth_fwd_kernel` (homan_tpu/render/
+pallas_depth.py:56, called through `depth_tiles_pallas` / `_depth_fwd`
+:155) and `_depth_bwd_kernel` (:180, called through `_depth_bwd_vjp` :235).
+The kernels live in csrc/depth.cu and are built by homan_tpu_torch/_build.py.
+
+Over a triangle, inverse depth is linear in screen space, so the prep
+(render/rasterizer.py `depth_prep`) reduces each binned face to its three
+sign-folded edge lines and its inverse-depth plane:
+
+  forward:  best(p) = max over valid slots k with e_i,k(p) >= 0 (i = 0..2)
+            of invz_k(p) = Az px + Bz py + Cz; a sequential scan with strict
+            > from best = 0, so the lowest slot wins a tie and amax = -1
+            where the pixel is uncovered (JAX's chunked first-match argmax);
+            depth = 1 / max(best, 1e-9) where best > 0, else 0
+  backward: only the winning slot k*(p) receives gradient; with coef =
+            -gcot * depth^2 (0 where uncovered), rows 9-11 (Az, Bz, Cz) of
+            slot k get the sums of (coef px, coef py, coef) over the pixels
+            whose amax is k; every other row is 0. The inside test gets no
+            gradient (envelope), as a CUDA z-buffer's depth backward.
+
+Dispatch is by device: a CPU tensor runs the plain PyTorch version below, a
+CUDA tensor launches the kernel (or raises). `depth_fwd_launches` and
+`depth_bwd_launches` count kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from homan_tpu_torch.render.shade import _check, _pixel_coords, _require_cuda
+
+# Launch counts of the CUDA kernels (the plain versions do not count).
+depth_fwd_launches = 0
+depth_bwd_launches = 0
+
+# Pixels per CUDA block; also the backward's partial-sum chunk.
+BLOCK_PIXELS = 256
+# Per pixel and valid slot, the forward kernel's fp32 arithmetic and
+# compares: four linear forms of 2 products and 2 sums each (16), three
+# `>= 0` tests and the `> best` test (4), two selects (csrc/depth.cu).
+FWD_OPS_PER_PIXEL_SLOT = 22
+# Per pixel, the backward's coef = -gcot*depth*depth (3), its select, and
+# coef*px, coef*py (2).
+BWD_OPS_PER_PIXEL = 6
+
+
+class DepthStatic(NamedTuple):
+    tile_px: int
+    image_size: int
+    g: int   # tiles per row
+    kf: int  # face slots per tile
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path, and the kernels' yardstick on the card)
+# ---------------------------------------------------------------------------
+def depth_fwd_plain(face_pack, static: DepthStatic):
+    """Sequential scan over the slots; every temporary is (B, T, tp, tp).
+    Returns depth (B, T, tp, tp) float32 and amax (B, T, tp, tp) int32."""
+    B, T = face_pack.shape[:2]
+    tp = static.tile_px
+    dev = face_pack.device
+    px, py, _ = _pixel_coords(static, T, dev)
+    best = torch.zeros((B, T, tp, tp), dtype=torch.float32, device=dev)
+    am = torch.full((B, T, tp, tp), -1, dtype=torch.int32, device=dev)
+    n_max = int(face_pack[:, :, 12].sum(-1).max()) if B * T else 0
+    fp = face_pack[..., None, None]  # (B, T, 16, kf, 1, 1)
+    for k in range(min(n_max, static.kf)):
+        a0, b0, c0, a1, b1, c1, a2, b2, c2, az, bz, cz, valid = (
+            fp[:, :, r, k] for r in range(13))
+        e0 = a0 * px + b0 * py + c0
+        e1 = a1 * px + b1 * py + c1
+        e2 = a2 * px + b2 * py + c2
+        invz = az * px + bz * py + cz
+        inside = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (valid > 0.0)
+        better = inside & (invz > best)
+        best = torch.where(better, invz, best)
+        am = torch.where(better, torch.full_like(am, k), am)
+    covered = best > 0.0
+    depth = torch.where(covered, 1.0 / torch.clamp(best, min=1e-9),
+                        torch.zeros((), device=dev))
+    amax = torch.where(covered, am, torch.full_like(am, -1))
+    return depth, amax
+
+
+def depth_bwd_plain(depth, amax, gcot, static: DepthStatic):
+    """gpack (B, T, 16, Kf): per slot, the sums over its argmax pixels."""
+    B, T = depth.shape[:2]
+    kf, P = static.kf, static.tile_px ** 2
+    dev = depth.device
+    px, py, _ = _pixel_coords(static, T, dev)
+    coef = torch.where(depth > 0.0, -gcot * depth * depth,
+                       torch.zeros((), device=dev))
+    contrib = torch.stack([coef * px, coef * py, coef], dim=2).reshape(
+        B, T, 3, P)
+    slot = torch.where(amax >= 0, amax, kf).to(torch.int64)
+    slot = slot.reshape(B, T, 1, P).expand(B, T, 3, P)
+    acc = torch.zeros((B, T, 3, kf + 1), dtype=torch.float32, device=dev)
+    acc.scatter_add_(-1, slot, contrib)
+    gpack = torch.zeros((B, T, 16, kf), dtype=torch.float32, device=dev)
+    gpack[:, :, 9:12] = acc[..., :kf]
+    return gpack
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLT = ctypes.c_float
+
+
+def _lib():
+    from homan_tpu_torch import _build
+    lib = _build.load("depth")
+    if lib.depth_fwd.argtypes is None:
+        lib.depth_fwd.argtypes = [_PTR] * 3 + [_INT] * 5 + [_FLT, _PTR]
+        lib.depth_fwd.restype = ctypes.c_int
+        lib.depth_bwd.argtypes = [_PTR] * 5 + [_INT] * 6 + [_FLT, _PTR]
+        lib.depth_bwd.restype = ctypes.c_int
+    return lib
+
+
+def depth_fwd(face_pack, static: DepthStatic):
+    """depth (B, T, tp, tp) float32 and amax (B, T, tp, tp) int32."""
+    if face_pack.device.type == "cpu":
+        return depth_fwd_plain(face_pack, static)
+    _require_cuda(face_pack)
+    global depth_fwd_launches
+    B, T = face_pack.shape[:2]
+    tp, kf = static.tile_px, static.kf
+    dev = face_pack.device
+    _check("face_pack", face_pack, (B, T, 16, kf), torch.float32, dev)
+    depth = torch.empty((B, T, tp, tp), dtype=torch.float32, device=dev)
+    amax = torch.empty((B, T, tp, tp), dtype=torch.int32, device=dev)
+    if B * T == 0:
+        return depth, amax
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.depth_fwd(face_pack.data_ptr(), depth.data_ptr(),
+                           amax.data_ptr(), B, T, static.g, tp, kf,
+                           1.0 / static.image_size, stream)
+    if rc != 0:
+        raise RuntimeError(f"depth_fwd kernel launch failed: CUDA error {rc}")
+    depth_fwd_launches += 1
+    return depth, amax
+
+
+def depth_bwd(depth, amax, gcot, static: DepthStatic):
+    """gpack (B, T, 16, Kf) from the forward's outputs and depth's
+    cotangent."""
+    if depth.device.type == "cpu":
+        return depth_bwd_plain(depth, amax, gcot, static)
+    _require_cuda(depth)
+    global depth_bwd_launches
+    B, T = depth.shape[:2]
+    tp, kf = static.tile_px, static.kf
+    dev = depth.device
+    px_shape = (B, T, tp, tp)
+    _check("depth", depth, px_shape, torch.float32, dev)
+    _check("amax", amax, px_shape, torch.int32, dev)
+    _check("gcot", gcot, px_shape, torch.float32, dev)
+    n_chunks = -(-tp * tp // BLOCK_PIXELS)
+    gpack = torch.empty((B, T, 16, kf), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return gpack
+    partial = torch.empty((B, T, n_chunks, 3, kf), dtype=torch.float32,
+                          device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.depth_bwd(depth.data_ptr(), amax.data_ptr(),
+                           gcot.data_ptr(), partial.data_ptr(),
+                           gpack.data_ptr(), B, T, static.g, tp, kf,
+                           n_chunks, 1.0 / static.image_size, stream)
+    if rc != 0:
+        raise RuntimeError(f"depth_bwd kernel launch failed: CUDA error {rc}")
+    depth_bwd_launches += 1
+    return gpack
+
+
+class _DepthTiles(torch.autograd.Function):
+    """depth = zbuffer(face_pack) with the argmax-slot backward."""
+
+    @staticmethod
+    def forward(ctx, face_pack, static):
+        depth, amax = depth_fwd(face_pack, static)
+        ctx.static = static
+        ctx.save_for_backward(depth, amax)
+        return depth
+
+    @staticmethod
+    def backward(ctx, gcot):
+        depth, amax = ctx.saved_tensors
+        return depth_bwd(depth, amax, gcot.contiguous(), ctx.static), None
+
+
+def depth_tiles(face_pack, static: DepthStatic):
+    """(B, T, tp, tp) hard z-buffer depth tiles, 0 where uncovered."""
+    face_pack = face_pack.contiguous()
+    if torch.is_grad_enabled() and face_pack.requires_grad:
+        return _DepthTiles.apply(face_pack, static)
+    return depth_fwd(face_pack, static)[0]

@@ -15,6 +15,12 @@ plain PyTorch versions.
 Gradients reach the vertices only through the packed segment endpoints
 (rows 0-3 of seg_pack); winding, contour flags and anchors are piecewise
 constant and built without a graph.
+
+The depth half (`depth_prep`, `rasterize_depth`; the counterpart of
+`_rasterize_depth_pallas`) bins faces the same way, the first
+`faces_per_tile` overlapping faces per tile in face-index order, reduces
+each to its sign-folded edge lines and its screen-linear inverse depth, and
+runs the hard z-buffer kernel pair of render/depth.py.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from homan_tpu_torch.render.depth import DepthStatic, depth_tiles
 from homan_tpu_torch.render.shade import ShadeStatic, shade_tiles
 
 
@@ -33,6 +40,7 @@ class RasterSettings:
     # Softness of the silhouette band in (normalized distance)^2 units.
     sigma: float = 1e-5
     tile_px: int = 64
+    faces_per_tile: int = 256  # depth pass only
     edges_per_tile: int = 64
     znear: float = 1e-4
     # Margin (pixels) around edge bboxes when binning; also the distance cap.
@@ -162,6 +170,52 @@ def _tile_overlap(lo, hi, valid, s: RasterSettings, margin: float):
             & valid[:, None, :])
 
 
+def _bin_first(overlap, cap: int):
+    """The first `cap` overlapping candidates of each (B, T) row, in index
+    order (the tie order of the JAX prep's binary top-k), valid slots as a
+    prefix: rank r's candidate is the first index where the running overlap
+    count reaches r. Returns idx (B, T, cap), clamped into range, hit
+    (B, T, cap) bool, and the inverse map slot_of (B, T, N): candidate n's
+    slot in tile t, or `cap` where it was not binned."""
+    B, T, N = overlap.shape
+    csum = torch.cumsum(overlap.to(torch.int32), dim=-1, dtype=torch.int32)
+    ranks = torch.arange(1, cap + 1, device=overlap.device, dtype=torch.int32)
+    idx = torch.searchsorted(csum, ranks.expand(B, T, cap).contiguous())
+    hit = ranks[None, None, :] <= csum[..., -1:]
+    slot_of = torch.where(overlap & (csum <= cap), csum.long() - 1, cap)
+    return torch.clamp(idx, max=N - 1), hit, slot_of
+
+
+class _BinnedRows(torch.autograd.Function):
+    """rows (B, N, C) gathered into binned slots (B, T, K, C), zero in the
+    empty slots.
+
+    A candidate sits in at most one slot per tile, so the backward is the
+    inverse map: a gather of each candidate's slot per tile and a sum over
+    tiles. Static shapes, deterministic, and no scatter: the default
+    backward of an index gather accumulates every empty slot into the one
+    clamped index, which serializes on the card.
+    """
+
+    @staticmethod
+    def forward(ctx, rows, idx, hit, slot_of):
+        B, _, C = rows.shape
+        ctx.save_for_backward(slot_of)
+        out = torch.gather(rows, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
+        out = out.reshape(idx.shape + (C,))
+        return torch.where(hit[..., None], out,
+                           torch.zeros((), device=out.device))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slot_of,) = ctx.saved_tensors
+        B, T, _, C = grad.shape
+        padded = torch.cat([grad, grad.new_zeros(B, T, 1, C)], dim=2)
+        per_tile = torch.gather(padded, 2,
+                                slot_of[..., None].expand(-1, -1, -1, C))
+        return per_tile.sum(1), None, None, None
+
+
 def _contour_data(uv, z, topo: MeshTopology, s: RasterSettings):
     """Oriented contour segments of the current projection (batched).
 
@@ -218,7 +272,7 @@ def shade_prep(verts, topo: MeshTopology, K, settings: RasterSettings):
     cap2 = margin * margin
     uv, z = project_ndc(verts, K)
     p0, p1, cross_sign, is_contour, flip = _contour_data(uv, z, topo, s)
-    B, E = p0.shape[:2]
+    B = p0.shape[0]
     dev = verts.device
 
     with torch.no_grad():
@@ -245,24 +299,14 @@ def shade_prep(verts, topo: MeshTopology, K, settings: RasterSettings):
         overlap = _tile_overlap(torch.minimum(p0, p1), torch.maximum(p0, p1),
                                 is_contour, s, margin)  # (B, T, E)
         e_demand = overlap.sum(-1).amax(-1)
-        # The first ke overlapping edges per tile, in edge-index order (the
-        # tie order of the JAX prep's binary top-k): rank r's edge is the
-        # first index where the running overlap count reaches r.
-        csum = torch.cumsum(overlap.to(torch.int32), dim=-1,
-                            dtype=torch.int32)
-        ranks = torch.arange(1, ke + 1, device=dev, dtype=torch.int32)
-        idx = torch.searchsorted(csum, ranks.expand(B, T, ke).contiguous())
-        hit = ranks[None, None, :] <= csum[..., -1:]
-        idx = torch.clamp(idx, max=E - 1)
-        flat = idx + (torch.arange(B, device=dev) * E)[:, None, None]
-        cols_c = torch.stack([cross_sign, flip * is_contour], dim=-1)
-        sel_c = torch.where(hit[..., None], cols_c.reshape(B * E, 2)[flat],
-                            zero)
-        hitf = hit.to(torch.float32)
+        binned = _bin_first(overlap, ke)
+        sel_c = _BinnedRows.apply(
+            torch.stack([cross_sign, flip * is_contour], dim=-1), *binned)
+        hitf = binned[1].to(torch.float32)
         far = 99.0 * (1.0 - hitf)
 
-    cols = torch.cat([p0, p1], dim=-1)  # (B, E, 4) with gradient
-    sel = torch.where(hit[..., None], cols.reshape(B * E, 4)[flat], zero)
+    # (B, T, ke, 4) endpoints, with gradient
+    sel = _BinnedRows.apply(torch.cat([p0, p1], dim=-1), *binned)
     seg_pack = torch.stack(
         [sel[..., 0] + far, sel[..., 1] + far, sel[..., 2] + far,
          sel[..., 3] + far, sel_c[..., 0], hitf, sel_c[..., 1],
@@ -316,6 +360,115 @@ def check_edge_budget(verts, topology, K,
                                 is_contour, s, margin)
         demand = int(overlap.sum(-1).max())
     capacity = min(s.edges_per_tile, int(topo.edges.shape[0]))
+    return {
+        "max_demand": demand,
+        "capacity": capacity,
+        "overflow": demand > capacity,
+        "utilization": demand / max(capacity, 1),
+    }
+
+
+def _face_data(verts, topo: MeshTopology, K, s: RasterSettings):
+    """Projected triangles, their signed areas, and the (B, T, F) tile
+    overlap of the valid faces (JAX `_rasterize_depth_pallas` prep)."""
+    uv, z = project_ndc(verts, K)
+    tri_uv = uv[:, topo.faces]  # (B, F, 3, 2)
+    tri_z = z[:, topo.faces]    # (B, F, 3)
+    area = _edge_fn(tri_uv[..., 0, :], tri_uv[..., 1, :], tri_uv[..., 2, :])
+    with torch.no_grad():
+        f_valid = (tri_z > s.znear).all(-1) & (area.abs() > 1e-12)
+        overlap = _tile_overlap(tri_uv.amin(2), tri_uv.amax(2), f_valid, s,
+                                0.5 / s.image_size)
+    return tri_uv, tri_z, area, overlap
+
+
+def depth_prep(verts, topo: MeshTopology, K, settings: RasterSettings):
+    """Packed per-tile depth-kernel inputs (the prep of homan_tpu/render/
+    rasterizer.py `_rasterize_depth_pallas`, :686-727).
+
+    Returns face_pack (B, T, 16, Kf) with rows [A0, B0, C0, A1, B1, C1, A2,
+    B2, C2, Az, Bz, Cz, valid, 0, 0, 0] (e_i(p) = A_i px + B_i py + C_i, sign
+    folded by the face's winding; invz(p) = Az px + Bz py + Cz), valid slots
+    as a prefix in face-index order and empty slots zero; f_demand (B,) the
+    largest per-tile face count before the Kf truncation; and the kernel's
+    DepthStatic. Gradients reach the vertices through rows 0-11.
+    """
+    s = settings
+    S, tp = s.image_size, s.tile_px
+    if S % tp:
+        raise ValueError("image_size must be a multiple of tile_px")
+    g = S // tp
+    T = g * g
+    F = topo.faces.shape[0]
+    kf = min(s.faces_per_tile, F)
+    tri_uv, tri_z, area, overlap = _face_data(verts, topo, K, s)
+    B = verts.shape[0]
+    dev = verts.device
+    with torch.no_grad():
+        f_demand = overlap.sum(-1).amax(-1)
+        idx, hit, slot_of = _bin_first(overlap, kf)
+
+    def line(a, b):
+        A = -(b[..., 1] - a[..., 1])
+        Bc = b[..., 0] - a[..., 0]
+        C = (b[..., 1] - a[..., 1]) * a[..., 0] - (b[..., 0] - a[..., 0]) * a[
+            ..., 1]
+        return A, Bc, C
+
+    sgn = torch.sign(area)
+    rows, bary = [], []
+    # e0 opposite v0 (edge v1->v2), e1 (v2->v0), e2 (v0->v1).
+    for i, j in ((1, 2), (2, 0), (0, 1)):
+        A, Bc, C = line(tri_uv[..., i, :], tri_uv[..., j, :])
+        rows += [A * sgn, Bc * sgn, C * sgn]
+        bary.append((A, Bc, C))
+    one = torch.ones((), dtype=area.dtype, device=dev)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area, one)
+    zi = torch.clamp(tri_z, min=1e-6)
+    for c in range(3):
+        rows.append((bary[0][c] / zi[..., 0] + bary[1][c] / zi[..., 1]
+                     + bary[2][c] / zi[..., 2]) * inv_area)
+    feat = torch.stack(rows, dim=-1)  # (B, F, 12)
+    sel = _BinnedRows.apply(feat, idx, hit, slot_of)  # (B, T, kf, 12)
+    face_pack = torch.cat(
+        [sel.permute(0, 1, 3, 2), hit.to(torch.float32)[:, :, None, :],
+         torch.zeros((B, T, 3, kf), device=dev)], dim=2)
+    return face_pack.contiguous(), f_demand, DepthStatic(tp, S, g, kf)
+
+
+def rasterize_depth(verts, topology, K,
+                    settings: RasterSettings = RasterSettings()):
+    """Differentiable hard z-buffer depth and coverage (homan_tpu/render/
+    rasterizer.py:645).
+
+    Returns dict depth (B, S, S), 0 where uncovered, and covered =
+    depth > 0. Faces beyond `faces_per_tile` in a tile are dropped from its
+    z-buffer: check_face_budget measures the demand.
+    """
+    topo = as_topology(topology, device=verts.device)
+    s = settings
+    S, tp = s.image_size, s.tile_px
+    g = S // tp
+    face_pack, _, static = depth_prep(verts, topo, K, s)
+    depth_t = depth_tiles(face_pack, static)  # (B, T, tp, tp)
+    B = verts.shape[0]
+    depth = depth_t.reshape(B, g, g, tp, tp).permute(0, 1, 3, 2, 4).reshape(
+        B, S, S)
+    return {"depth": depth, "covered": depth > 0}
+
+
+def check_face_budget(verts, topology, K,
+                      settings: RasterSettings = RasterSettings()):
+    """Host-side diagnostic: per-tile face demand vs faces_per_tile.
+
+    A dropped face leaves a hole or a wrong winner in its tile's z-buffer.
+    Returns max_demand, capacity, overflow, utilization.
+    """
+    topo = as_topology(topology, device=verts.device)
+    with torch.no_grad():
+        overlap = _face_data(verts, topo, K, settings)[3]
+        demand = int(overlap.sum(-1).max())
+    capacity = min(settings.faces_per_tile, int(topo.faces.shape[0]))
     return {
         "max_demand": demand,
         "capacity": capacity,

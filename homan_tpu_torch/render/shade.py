@@ -184,8 +184,8 @@ def _check(name, x, shape, dtype, device):
 
 def _require_cuda(x):
     if x.device.type != "cuda":
-        raise ValueError(f"shade kernels take CPU or CUDA tensors, got "
-                         f"{x.device}")
+        raise ValueError(f"the CUDA kernels' wrappers take CPU or CUDA "
+                         f"tensors, got {x.device}")
 
 
 def shade_fwd(seg_pack, anchors, static: ShadeStatic,

@@ -1,6 +1,7 @@
-"""The CUDA shade kernel pair against its plain PyTorch versions, on the
-card. Marked `cuda`; skipped where torch sees no CUDA device. The GPU
-machine has no jax, so this file uses the port alone; run it there with
+"""The CUDA kernels (shade pair, depth pair, voxelizer) against their plain
+PyTorch versions, on the card. Marked `cuda`; skipped where torch sees no
+CUDA device. The GPU machine has no jax, so this file uses the port alone;
+run it there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -10,6 +11,9 @@ import torch
 
 from homan_tpu_torch.core import mano as tmano
 from homan_tpu_torch.core.meshes import bumpy_potato
+from homan_tpu_torch.interactions import sdf as tsdf
+from homan_tpu_torch.interactions import voxelize as tvox
+from homan_tpu_torch.render import depth as tdepth
 from homan_tpu_torch.render import rasterizer as tr
 from homan_tpu_torch.render import shade
 
@@ -95,3 +99,55 @@ def test_rasterize_soft_gradient_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(sils[1], sils[0], atol=2e-5)
     scale = np.abs(grads[0]).max()
     assert np.abs(grads[1] - grads[0]).max() <= 3e-3 * scale
+
+
+@pytest.mark.parametrize("case", [("object", 64, 16, 32),
+                                  ("object", 128, 64, 1024),
+                                  ("hand", 128, 32, 256),
+                                  ("hand", 128, 64, 2048)])
+def test_depth_kernels_match_plain(cuda, case):
+    mesh, S, tp, kf = case
+    verts, faces, K = raster_mesh(mesh)
+    verts[..., 2] -= 0.2 if mesh == "hand" else 0.4
+    topo = tr.MeshTopology.from_faces(faces, device=cuda)
+    with torch.no_grad():
+        pack, _, static = tr.depth_prep(
+            torch.from_numpy(verts).to(cuda), topo,
+            torch.from_numpy(K).to(cuda),
+            tr.RasterSettings(S, tile_px=tp, faces_per_tile=kf))
+    n0, m0 = tdepth.depth_fwd_launches, tdepth.depth_bwd_launches
+    k_d, k_a = tdepth.depth_fwd(pack, static)
+    p_d, p_a = tdepth.depth_fwd_plain(pack, static)
+    assert tdepth.depth_fwd_launches == n0 + 1
+    assert torch.equal(k_d > 0, p_d > 0) and bool((p_d > 0).any())
+    torch.testing.assert_close(k_d, p_d, atol=0, rtol=1e-6)
+    same = k_a == p_a
+    assert same.float().mean().item() >= 0.999
+    assert torch.equal(k_d[~same], p_d[~same])  # ties won at equal depth
+    gcot = torch.randn(k_d.shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    g_k = tdepth.depth_bwd(k_d, k_a, gcot, static)
+    g_p = tdepth.depth_bwd_plain(p_d, p_a, gcot, static)
+    assert tdepth.depth_bwd_launches == m0 + 1
+    scale = g_p.abs().max().item()
+    assert scale > 0
+    assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
+    assert torch.equal(g_k, tdepth.depth_bwd(k_d, k_a, gcot, static))
+    assert not bool(torch.cat([g_k[:, :, :9], g_k[:, :, 12:]], 2).any())
+
+
+@pytest.mark.parametrize("mesh,grid", [("object", 16), ("object", 32),
+                                       ("hand", 32)])
+def test_voxelizer_kernel_matches_plain(cuda, mesh, grid):
+    verts, faces, _ = raster_mesh(mesh)
+    v = torch.from_numpy(verts).to(cuda)
+    center, scale = tsdf.normalize_to_unit_box(v)
+    local = (v - center) / scale
+    f = torch.from_numpy(np.asarray(faces, np.int64)).to(cuda)
+    n0 = tvox.voxelize_launches
+    k = tvox.voxelize(local, f, grid)
+    assert tvox.voxelize_launches == n0 + 1
+    p = tsdf.voxelize_interior_sdf(local, f, grid)
+    assert bool((p > 0).any())
+    assert torch.equal(k > 0, p > 0)
+    assert (k - p).abs().max().item() <= 1e-5

@@ -1,0 +1,301 @@
+"""PyTorch port vs JAX package: the depth prep, the hard z-buffer kernel
+pair's plain versions, rasterize_depth and the ordinal-depth loss (CPU, same
+numpy inputs on both sides).
+
+The JAX depth kernels run in interpret mode, as tests/test_rasterizer.py:309
+runs them. Bands: prep coefficients 1e-6 of each row's largest value, valid
+rows exact; plain forward vs Pallas on one pack: depth 1e-5, coverage and
+argmax equal up to ties; backward 3e-3 of the maximum; rasterize_depth vs
+the JAX XLA path: coverage equal, depth atol 1e-3 and vertex gradients
+5e-3 of the maximum (the JAX package's own band, tests/test_rasterizer.py:
+333,345); losses rtol 3e-4, gradients 3e-3 of the maximum.
+"""
+import dataclasses
+import functools
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from homan_tpu.fit import losses as JL
+from homan_tpu.render import pallas_depth as jdepth
+from homan_tpu.render import rasterizer as jr
+from homan_tpu_torch.fit import losses as TL
+from homan_tpu_torch.render import depth as tdepth
+from homan_tpu_torch.render import rasterizer as tr
+
+from torch_port_common import (assert_grad_close, depth_scene_pair,
+                               overlap_state, port_from_jax, raster_mesh,
+                               settings_pair, t2n, to_numpy)
+
+# (mesh, image size, tile, faces per tile): a Kf that overflows the
+# per-tile demand and one that holds every face, for each mesh.
+DEPTH_CASES = [("object", 64, 16, 32), ("object", 64, 16, 1024),
+               ("hand", 128, 32, 128), ("hand", 128, 32, 640)]
+
+
+def _ids(c):
+    return f"{c[0]}-{c[1]}-{c[2]}-kf{c[3]}"
+
+
+def _settings(S, tp, kf, use_pallas=True):
+    from homan_tpu.render import RasterSettings as JS
+    return (JS(image_size=S, tile_px=tp, faces_per_tile=kf,
+               use_pallas=use_pallas),
+            tr.RasterSettings(S, tile_px=tp, faces_per_tile=kf))
+
+
+def _hand_closer(verts, K):
+    """The test hand nearer the camera and under a longer focal length, so
+    its faces span pixels: at ~0.4 px per face the JAX package's own two
+    depth formulations differ by 5e-3 in the vertex gradient."""
+    v = verts.copy()
+    v[..., 2] -= 0.2
+    K = K.copy()
+    K[:, 0, 0] = K[:, 1, 1] = 2.5
+    return v, K
+
+
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    mesh, S, tp, kf = case
+    verts, faces, K = raster_mesh(mesh)
+    if mesh == "hand":
+        verts, K = _hand_closer(verts, K)
+    return verts, faces, K, _settings(S, tp, kf)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pack(case):
+    """The face pack the JAX Pallas path builds, captured at the kernel
+    call (the JAX prep has no entry point of its own)."""
+    verts, faces, K, (js, _) = _case(case)
+    seen = {}
+
+    def capture(face_pack, static):
+        seen["pack"] = np.array(face_pack)
+        seen["static"] = static
+        B, T = face_pack.shape[:2]
+        return jnp.zeros((B, T, static[0], static[0]), jnp.float32)
+
+    with jax.disable_jit(), mock.patch.object(jdepth, "depth_tiles_pallas",
+                                              capture):
+        jr.rasterize_depth(jnp.asarray(verts), jr.MeshTopology.from_faces(
+            faces), jnp.asarray(K), js)
+    return seen["pack"], seen["static"]
+
+
+def _port_pack(case):
+    verts, faces, K, (_, ts) = _case(case)
+    topo = tr.MeshTopology.from_faces(faces, device="cpu")
+    return tr.depth_prep(torch.from_numpy(verts), topo, torch.from_numpy(K),
+                         ts)
+
+
+@pytest.mark.parametrize("case", DEPTH_CASES, ids=_ids)
+def test_depth_prep_matches_jax_prep(case):
+    jpack, jstatic = _jax_pack(case)
+    tpack, demand, static = _port_pack(case)
+    tpack = t2n(tpack)
+    assert tuple(static) == tuple(jstatic)
+    assert tpack.shape == jpack.shape
+    valid = jpack[:, :, 12] > 0.5
+    np.testing.assert_array_equal(tpack[:, :, 12], jpack[:, :, 12])
+    n_valid = valid.sum(-1)
+    assert (valid == (np.arange(static.kf) < n_valid[..., None])).all()
+    overflow = case[3] in (32, 128)
+    assert bool((t2n(demand) > static.kf).any()) == overflow
+    if not overflow:
+        np.testing.assert_array_equal(t2n(demand), n_valid.max(-1))
+    assert valid.any()
+    for r in range(12):
+        t, j = tpack[:, :, r][valid], jpack[:, :, r][valid]
+        scale = np.abs(j).max()
+        np.testing.assert_allclose(t, j, atol=1e-6 * scale, rtol=0,
+                                   err_msg=f"row {r}")
+    # Empty slots hold zeros (the JAX prep fills them with the features of
+    # faces that miss the tile; the kernels read only the valid prefix).
+    assert not tpack[:, :, :12][np.broadcast_to(
+        ~valid[:, :, None], tpack[:, :, :12].shape)].any()
+    assert not tpack[:, :, 13:].any()
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_outputs(case):
+    jpack, jstatic = _jax_pack(case)
+    depth, amax = jdepth._depth_fwd(jnp.asarray(jpack), jstatic)
+    B, T = jpack.shape[:2]
+    tp = jstatic[0]
+    gcot = np.random.RandomState(0).randn(B, T, tp, tp).astype(np.float32)
+    depth = jnp.asarray(depth).reshape(B, T, tp, tp)
+    amax = jnp.asarray(amax).reshape(B, T, tp, tp)
+    (gpack,) = jdepth._depth_bwd_vjp(jstatic, (depth, amax),
+                                     jnp.asarray(gcot))
+    return np.array(depth), np.array(amax), gcot, np.array(gpack)
+
+
+@pytest.mark.parametrize("case", DEPTH_CASES, ids=_ids)
+def test_depth_plain_matches_pallas_interpret(case):
+    jpack, jstatic = _jax_pack(case)
+    static = tdepth.DepthStatic(*jstatic)
+    jd, ja, gcot, jg = _pallas_outputs(case)
+    n0 = tdepth.depth_fwd_launches, tdepth.depth_bwd_launches
+    td, ta = tdepth.depth_fwd(torch.from_numpy(jpack), static)
+    td, ta = t2n(td), t2n(ta)
+    covered = jd > 0
+    np.testing.assert_array_equal(td > 0, covered)
+    np.testing.assert_allclose(td, jd, atol=1e-5, rtol=0)
+    same = ta == ja
+    # Ties: a differing winner won with the same depth.
+    np.testing.assert_array_equal(td[~same], jd[~same])
+    assert same.mean() >= 0.999
+    assert (ta[~covered] == -1).all()
+
+    tg = t2n(tdepth.depth_bwd(torch.from_numpy(jd), torch.from_numpy(ja),
+                              torch.from_numpy(gcot), static))
+    assert (tdepth.depth_fwd_launches, tdepth.depth_bwd_launches) == n0
+    assert not np.delete(tg, [9, 10, 11], axis=2).any()
+    if covered.any():
+        assert_grad_close(tg, jg, name="gpack")
+    else:
+        assert not jg.any() and not tg.any()
+
+
+def _xla_settings(case):
+    js, ts = _case(case)[3]
+    return dataclasses.replace(js, use_pallas=False), ts
+
+
+@pytest.mark.parametrize("case", DEPTH_CASES, ids=_ids)
+def test_rasterize_depth_matches_jax_xla_path(case):
+    verts, faces, K, _ = _case(case)
+    js, ts = _xla_settings(case)
+    jtopo = jr.MeshTopology.from_faces(faces)
+    S = ts.image_size
+    w = np.linspace(0.5, 1.5, S).astype(np.float32)
+
+    def jloss(v):
+        d = jr.rasterize_depth(v, jtopo, jnp.asarray(K), js)["depth"]
+        return (d * (d > 0) * w).sum()
+
+    jout = jr.rasterize_depth(jnp.asarray(verts), jtopo, jnp.asarray(K), js)
+    jgrad = np.asarray(jax.grad(jloss)(jnp.asarray(verts)))
+    tv = torch.from_numpy(verts).requires_grad_(True)
+    tout = tr.rasterize_depth(tv, tr.MeshTopology.from_faces(faces, "cpu"),
+                              torch.from_numpy(K), ts)
+    d = tout["depth"]
+    (d * (d > 0) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_array_equal(t2n(tout["covered"]),
+                                  np.asarray(jout["covered"]))
+    np.testing.assert_allclose(t2n(d), np.asarray(jout["depth"]), atol=1e-3)
+    if np.abs(jgrad).max() > 0:
+        assert_grad_close(t2n(tv.grad), jgrad, rel=5e-3, name="d/dverts")
+    else:
+        assert not t2n(tv.grad).any()
+
+
+@pytest.mark.parametrize("case", DEPTH_CASES, ids=_ids)
+def test_check_face_budget(case):
+    verts, faces, K, (_, ts) = _case(case)
+    topo = tr.MeshTopology.from_faces(faces, device="cpu")
+    out = tr.check_face_budget(torch.from_numpy(verts), topo,
+                               torch.from_numpy(K), ts)
+    _, demand, static = _port_pack(case)
+    assert out["max_demand"] == int(demand.max())
+    assert out["capacity"] == static.kf
+    assert out["overflow"] == (out["max_demand"] > static.kf)
+
+
+def test_ordinal_depth_loss_values_and_gradients():
+    rng = np.random.RandomState(7)
+    B, N, S = 2, 3, 16
+    masks = rng.rand(B, N, S, S) > 0.5
+    sils = [rng.rand(B, S, S) > 0.3 for _ in range(N)]
+    depths = [rng.uniform(0.4, 2.0, (B, S, S)).astype(np.float32)
+              for _ in range(N)]
+
+    def jloss(*ds):
+        return JL.compute_ordinal_depth_loss(
+            jnp.asarray(masks), [jnp.asarray(s) for s in sils],
+            list(ds))["loss_depth"]
+
+    jval, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        *[jnp.asarray(d) for d in depths])
+    td = [torch.from_numpy(d).requires_grad_(True) for d in depths]
+    tval = TL.compute_ordinal_depth_loss(
+        torch.from_numpy(masks), [torch.from_numpy(s) for s in sils],
+        td)["loss_depth"]
+    tval.backward()
+    assert float(jval) > 0
+    np.testing.assert_allclose(tval.item(), float(jval), rtol=3e-4)
+    for t, j in zip(td, jgrads):
+        assert_grad_close(t2n(t.grad), np.asarray(j), name="d/ddepth")
+    # No covered pair: zero loss, not a division by zero.
+    empty = TL.compute_ordinal_depth_loss(
+        torch.from_numpy(masks), [torch.zeros(B, S, S, dtype=torch.bool)] * N,
+        td)["loss_depth"]
+    assert empty.item() == 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_depth_losses(kf):
+    js, _ = depth_scene_pair()
+    state = overlap_state(js)
+    jroi, _ = settings_pair(64, 32, 48)
+    jfull, _ = _settings(128, 32, kf, use_pallas=False)
+    lw = dict(JL.DEFAULT_LW, lw_depth=1.0)
+
+    def total(s):
+        ld, md = JL.compute_all_losses(s, js.consts, js.cfg, lw,
+                                       roi_settings=jroi,
+                                       full_settings=jfull)
+        return JL.weighted_sum(ld, lw), (ld, md)
+
+    (_, (jl, jm)), jg = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        state)
+    return jl, jm, to_numpy(jg)
+
+
+@pytest.mark.parametrize("kf", [64, 2048])
+def test_compute_all_losses_with_depth(kf):
+    """The depth branch of compute_all_losses against the JAX package's,
+    through the XLA depth path the JAX fit takes off the TPU (the kernel
+    formulation is held to the Pallas kernels above), at a Kf that drops
+    faces and at one that keeps them all: values and per-leaf gradients."""
+    js, ts = depth_scene_pair()
+    np.testing.assert_array_equal(t2n(ts.consts.masks_object),
+                                  np.asarray(js.consts.masks_object))
+    hand_mismatch = (t2n(ts.consts.masks_hand)
+                     != np.asarray(js.consts.masks_hand)).mean()
+    assert hand_mismatch < 1e-3
+    jl, jm, jg = _jax_depth_losses(kf)
+    js_state = overlap_state(js)
+    state, consts, cfg = port_from_jax(
+        dataclasses.replace(js, init_state=js_state))
+    state = state.map(lambda x: x.clone().requires_grad_(True))
+    _, troi = settings_pair(64, 32, 48)
+    _, tfull = _settings(128, 32, kf)
+    lw = dict(TL.DEFAULT_LW, lw_depth=1.0)
+    tl, tm = TL.compute_all_losses(state, consts, cfg, lw, roi_settings=troi,
+                                   full_settings=tfull)
+    # (jit returns its dicts with sorted keys)
+    assert set(tl) == set(jl) and list(tl)[-1] == "loss_depth"
+    assert float(jl["loss_depth"]) > 0
+    # At the ground-truth hand the keypoint metric is 0 up to rounding (in
+    # pixels).
+    for ours, theirs, atol in ((tl, jl, 1e-7), (tm, jm, 1e-5)):
+        for k in theirs:
+            np.testing.assert_allclose(float(ours[k].detach()),
+                                       float(np.asarray(theirs[k])),
+                                       rtol=3e-4, atol=atol, err_msg=k)
+    TL.weighted_sum(tl, lw).backward()
+    for name, g in jg.items():
+        t = getattr(state, name).grad
+        t = np.zeros_like(g) if t is None else t2n(t)
+        if not np.any(g):
+            assert not np.any(t), name
+            continue
+        assert_grad_close(t, g, name=name)

@@ -4,18 +4,24 @@
 Bands (tests/test_jointopt_parity.py:300-339): losses at iteration 0 within
 rtol 3e-4, the first 10 totals within rtol 3e-3, the final translations
 within atol 2e-3 and the final rotations, compared as matrices (the rot6d
-null space drifts apart), within atol 2e-3.
+null space drifts apart), within atol 2e-3. The interaction and
+ordinal-depth fits run a few steps on two frames: every step's total within
+rtol 3e-3.
 """
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from homan_tpu.core import geometry as jgeo
 from homan_tpu.fit import joint as JJ
 from homan_tpu_torch.core import geometry as tgeo
 from homan_tpu_torch.fit import joint as TJ
 
-from torch_port_common import (port_from_jax, scene_pair, settings_pair, t2n,
-                               to_numpy)
+from homan_tpu_torch import convert
+from torch_port_common import (depth_scene_pair, overlap_state, port_from_jax,
+                               scene_pair, settings_pair, t2n, to_numpy)
 
 ITERS = 25
 
@@ -44,6 +50,27 @@ def test_make_synthetic_scene_consts_equal():
                                    atol=1e-6, err_msg=k)
     np.testing.assert_allclose(t2n(ts.gt_verts_object),
                                np.asarray(js.gt_verts_object), atol=1e-6)
+
+
+def test_make_synthetic_scene_full_masks_and_closed_faces():
+    js, ts = depth_scene_pair()
+    np.testing.assert_array_equal(t2n(ts.closed_hand_faces),
+                                  np.asarray(js.closed_hand_faces))
+    for k in ("masks_object", "masks_hand"):
+        ours, theirs = t2n(getattr(ts.consts, k)), np.asarray(
+            getattr(js.consts, k))
+        assert ours.shape == theirs.shape == (2, 128, 128)
+        assert theirs.sum() > 100
+        # Soft silhouettes thresholded at 0.5: rounding may flip a pixel
+        # on the boundary.
+        assert (ours != theirs).mean() < 1e-3, k
+
+
+def test_convert_carries_closed_faces():
+    js, _ = scene_pair()
+    faces = convert.faces_from_numpy(js.closed_hand_faces, "cpu")
+    assert faces.dtype == torch.int64
+    np.testing.assert_array_equal(t2n(faces), np.asarray(js.closed_hand_faces))
 
 
 def test_optimize_hand_object_parity():
@@ -98,3 +125,51 @@ def test_raster_schedule_and_viz_hook(viz_step):
             if done < 7:
                 expected.append(done)
     assert seen == expected
+
+
+def _short_fit_parity(js, cfg, lw, iters, **kw):
+    """A few steps of both fits from the JAX scene's data; every step's
+    total within rtol 3e-3, iteration 0 per term within rtol 3e-4."""
+    jset, tset = settings_pair(64, 32, 48)
+    jcfg = dataclasses.replace(js.cfg, **cfg)
+    jf, jh = JJ.optimize_hand_object(
+        js.init_state, js.consts, jcfg, loss_weights=lw,
+        num_iterations=iters, closed_hand_faces=js.closed_hand_faces,
+        roi_settings=jset)
+    state, consts, tcfg = port_from_jax(js)
+    tcfg = dataclasses.replace(tcfg, **cfg)
+    tf, th = TJ.optimize_hand_object(
+        state, consts, tcfg, loss_weights=lw, num_iterations=iters,
+        closed_hand_faces=convert.faces_from_numpy(js.closed_hand_faces,
+                                                   "cpu"),
+        roi_settings=tset, device="cpu", **kw)
+    assert set(th) == set(jh)
+    for k in jh:
+        # Metrics are in pixels: 0 at a ground-truth hand up to rounding.
+        atol = 1e-7 if k.startswith("loss") else 1e-5
+        np.testing.assert_allclose(float(th[k][0]), float(jh[k][0]),
+                                   rtol=3e-4, atol=atol, err_msg=f"iter0 {k}")
+    np.testing.assert_allclose(t2n(th["loss"]), np.asarray(jh["loss"]),
+                               rtol=3e-3)
+    assert float(th["loss"][-1]) < float(th["loss"][0])
+    return th
+
+
+@pytest.mark.parametrize("sdf_mode,iters", [("grid", 2), ("direct", 10)])
+def test_interaction_fit_parity(sdf_mode, iters):
+    """The reference's step-2 recipe (collision 1e-3, contact 1) in both SDF
+    modes; grid mode voxelizes both meshes every step."""
+    js, _ = scene_pair()
+    th = _short_fit_parity(js, {"sdf_mode": sdf_mode},
+                           {"lw_collision": 1e-3, "lw_contact": 1.0}, iters)
+    assert float(th["loss_contact"][0]) > 0
+
+
+def test_ordinal_depth_fit_parity():
+    """lw_depth 1 from a pose where the object overlaps the hand; the JAX
+    fit's full-image default (faces_per_tile 256, which drops faces here)
+    is what full_settings=None reproduces."""
+    js, _ = depth_scene_pair()
+    js = dataclasses.replace(js, init_state=overlap_state(js))
+    th = _short_fit_parity(js, {}, {"lw_depth": 1.0}, 5)
+    assert float(th["loss_depth"][0]) > 0

@@ -93,3 +93,14 @@ def test_tf32_is_off():
     import homan_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_every_kernel_source_is_built():
+    """Every csrc/ of the package is built; each kernel's library is keyed
+    by its own source."""
+    from homan_tpu_torch import _build
+    assert _build.sources() == ["depth", "shade", "voxelize"]
+    paths = {name: _build._lib_path(name) for name in _build.sources()}
+    assert len(set(paths.values())) == 3
+    assert all(os.path.basename(p).startswith(n + "-")
+               for n, p in paths.items())

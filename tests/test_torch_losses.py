@@ -159,7 +159,22 @@ def test_joints_hand_match():
 
 @pytest.mark.parametrize("key", ["lw_collision", "lw_contact", "lw_depth"])
 def test_later_slice_terms_raise(key):
+    """Every term of the JAX package is ported: only the triangle-triangle
+    collision still raises, naming its queue item; contact and ordinal depth
+    (and the SDF collision, in tests/test_torch_sdf.py) compute."""
     _, ts = scene_pair()
     lw = dict(TL.DEFAULT_LW, **{key: 1.0})
-    with pytest.raises(NotImplementedError, match="slice"):
-        TL.compute_all_losses(ts.init_state, ts.consts, ts.cfg, lw)
+    cfg = dataclasses.replace(ts.cfg, collision_mode="tritri")
+    args = (ts.init_state, ts.consts, cfg, lw)
+    if key == "lw_collision":
+        with pytest.raises(NotImplementedError, match="tritri.*item 17"):
+            TL.compute_all_losses(*args,
+                                  closed_hand_faces=ts.closed_hand_faces)
+        return
+    if key == "lw_contact":
+        with pytest.raises(ValueError, match="closed_hand_faces"):
+            TL.compute_all_losses(*args)
+    loss_dict, _ = TL.compute_all_losses(
+        *args, closed_hand_faces=ts.closed_hand_faces)
+    value = loss_dict[key.replace("lw", "loss")]
+    assert value.shape == () and bool(torch.isfinite(value))

@@ -4,8 +4,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
+import torch
+
+# The suite runs in several worker processes on one machine: a full-width
+# torch thread pool in each oversubscribes the cores (a 2 s test took 50 s
+# under six workers). Two threads per worker keep them busy without that.
+torch.set_num_threads(max(1, min(2, (os.cpu_count() or 1) // 4)))
 
 
 def to_numpy(x):
@@ -123,3 +130,30 @@ def raster_case(mesh, S, tp, ke):
     ttopo = tr.MeshTopology.from_faces(faces, device="cpu")
     jset, tset = settings_pair(S, tp, ke)
     return verts, K, jtopo, ttopo, jset, tset
+
+
+@functools.lru_cache(maxsize=None)
+def depth_scene_pair(seed=0, frame_nb=2, image_size=128, rend_size=64):
+    """scene_pair with the image-sized entity masks of the ordinal-depth
+    loss."""
+    from homan_tpu.frontend import gtsynth as jgs
+    from homan_tpu_torch.frontend import gtsynth as tgs
+    js = jgs.make_synthetic_scene(seed=seed, frame_nb=frame_nb,
+                                  image_size=image_size, rend_size=rend_size,
+                                  with_full_masks=True)
+    ts = tgs.make_synthetic_scene(jax_obj_rot0(seed), seed=seed,
+                                  frame_nb=frame_nb, image_size=image_size,
+                                  rend_size=rend_size, with_full_masks=True,
+                                  device="cpu")
+    return js, ts
+
+
+def overlap_state(js):
+    """The JAX scene's ground-truth state with the object moved just in
+    front of the (first) hand: the renders then overlap where the masks
+    disagree, so the ordinal-depth pairs are active."""
+    import jax.numpy as jnp
+    gt = js.gt_state
+    hand_nb = js.cfg.hand_nb
+    t = gt.translations_hand[::hand_nb] + jnp.asarray([0.03, 0.0, -0.06])
+    return dataclasses.replace(gt, translations_object=t)
