@@ -3,26 +3,38 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab voxelize=OTHER.cu --ab shade_fwd=OTHER.cu
 
 Phases, each fatal on failure:
   1. set-up: card, power limit, versions; TF32 off; build every CUDA kernel
      from the package's csrc/ directories (nvcc, sm_90a, one process per
-     source, all at once).
+     source, all at once), printing ptxas' registers and spills.
   2. kernels vs plain versions on the card, at the shapes the paths give
-     them, with CUDA-event medians of each:
+     them, with CUDA-event medians of each (runs of 10 launches back to
+     back, so the wrapper's host work overlaps the device's):
      - the shade pair on the packs the port's prep builds at the headline
        fit's shape (30 frames, 256^2, tile 128; Ke 48 and the Ke the fit
        runs, sized from the measured contour-edge demand as the JAX
        package's auto_edge_settings does) and at the evidence renders'
-       (tile 16): values, argmin agreement, forward-only mode, gradients;
+       (tile 16): bit-equality with the plain forward, the bands (sil
+       2e-5, argmin >= 0.999, ties 1e-7, residuals 1e-6), forward-only
+       mode, gradients; the bound counts the work the kernel does on
+       these inputs (shade.fwd_work);
      - the depth pair on the object's and the hand's face packs at the
        depth fit's shape (10 frames, 512^2, tile 64) at the face budget
        sized from the measured demand and at the default 256: coverage
        identical, depth within 1e-6 relative, argmax agreement with ties
        explained, gpack within 3e-3 of its max, deterministic, zero
        outside rows 9-11;
-     - the voxelizer on the interaction fit's hand and object at G 32:
-       within 1e-5, inside sets identical.
+     - the voxelizer on the interaction fit's hand and object at G 16, 32
+       and 64: within 1e-5, inside sets identical, deterministic; the
+       inside share, the bound of the work these inputs need (crossing
+       test per column, distance per inside point) and the dense sweep's
+       bound `dense_bound_ms` beside it.
+     --ab NAME=PATH builds another source of a kernel with the same C
+     interface (the parent commit's, a design variant), checks its output
+     against the package's and times the two in turns (package, other,
+     other, package), then stops before phase 3.
   3. the paths, each run twice with every launch count set to 0 just
      before a run and read just after; losses finite and falling, no
      edge-budget overflow, a 10-step torch.profiler window each:
@@ -57,6 +69,7 @@ FRAMES, ITERS, REND, TILE, KE = 30, 400, 256, 128, 48
 # The interaction fit (bench.py bench_config3, grid SDF) and the
 # ordinal-depth fit (bench.py bench_depth): 10 frames, 512^2 full image.
 FRAMES2, ITERS2, ITERS3, GRID, DEPTH_TILE = 10, 400, 100, 32, 64
+VOX_GRIDS = (16, 32, 64)  # every grid size the voxelizer takes
 LW_INTER = {"lw_collision": 1e-3, "lw_contact": 1.0}
 LW_DEPTH = {"lw_depth": 1.0}
 # Edge-slot buckets and headroom of the JAX package's auto_edge_settings
@@ -90,8 +103,10 @@ def random_rotation(seed):
     ], np.float32)
 
 
-def time_ms(torch, fn, reps=25, warmup=3):
-    """Median CUDA-event time of fn over `reps` runs."""
+def time_ms(torch, fn, reps=25, warmup=3, inner=10):
+    """Median CUDA-event time of one call of fn, over `reps` runs of
+    `inner` calls back to back (so the host's launch work overlaps the
+    device's; a plain version of many launches takes inner=1)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -100,32 +115,37 @@ def time_ms(torch, fn, reps=25, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
-def bounds(seg_pack, static):
+def bounds(seg_pack, anchors, static):
     """Least times (ms) of the forward and backward on these inputs.
 
     Forward: bytes = seg_pack + anchors read, sil/amin/rx/ry/tc written;
-    operations = FWD_OPS_PER_PIXEL_SLOT per pixel and VALID slot of its
-    tile (the kernel loops k < n_e). Backward: bytes = five residuals and
-    the cotangent read, gseg written; operations per pixel.
+    operations = the kernel's work on these inputs, replayed by
+    shade.fwd_work (records per (row, VALID slot), pass 1 per (pixel,
+    VALID slot), skip tests per (pixel group, VALID slot), pass 2 where a
+    group does not skip its slot). Backward: bytes = five residuals and the
+    cotangent read, gseg written; operations per pixel.
     """
     from homan_tpu_torch.render import shade
     B, T = seg_pack.shape[:2]
     px = B * T * static.tile_px ** 2
     seg_bytes = seg_pack.numel() * 4
-    slot_px = float(seg_pack[:, :, 5].sum()) * static.tile_px ** 2
-    share = slot_px / (px * static.ke)
+    work = shade.fwd_work(seg_pack, anchors, static)
+    share = work["row_slots"] / static.tile_px / (B * T * static.ke)
+    evaluated = work["evaluated_group_slots"] / work["group_slots"]
     fwd_bytes = seg_bytes + px * 4 + px * 20
-    fwd_ops = shade.FWD_OPS_PER_PIXEL_SLOT * slot_px
+    fwd_ops = shade.fwd_work_ops(work)
     bwd_bytes = px * 24 + seg_bytes
     bwd_ops = shade.BWD_OPS_PER_PIXEL * px
-    return (_bound(fwd_bytes, fwd_ops), _bound(bwd_bytes, bwd_ops), share)
+    return (_bound(fwd_bytes, fwd_ops), _bound(bwd_bytes, bwd_ops), share,
+            evaluated)
 
 
 def _bound(n_bytes, n_ops):
@@ -173,22 +193,23 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
           f"{name}: gseg err {g_err} > 3e-3 of max {g_scale}")
     check(torch.equal(g_k, shade.shade_bwd(k_out, gcot, static)),
           f"{name}: backward kernel is not deterministic")
-    (fb, fby), (bb, bby), fill = bounds(seg_pack, static)
-    out = {"sil_err": sil_err, "argmin_agree": agree, "res_err": res_err,
+    (fb, fby), (bb, bby), fill, evaluated = bounds(seg_pack, anchors, static)
+    out = {"bit_equal": all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+           "sil_err": sil_err, "argmin_agree": agree, "res_err": res_err,
            "gseg_err": g_err, "gseg_max": g_scale, "fwd_bound_ms": fb,
            "fwd_bound_by": fby, "bwd_bound_ms": bb, "bwd_bound_by": bby,
-           "valid_slot_share": fill}
+           "valid_slot_share": fill, "evaluated_share": evaluated}
     if timed:
         out["fwd_ms"] = time_ms(torch, lambda: shade.shade_fwd(
             seg_pack, anchors, static, True))
         out["fwd_only_ms"] = time_ms(torch, lambda: shade.shade_fwd(
             seg_pack, anchors, static, False))
         out["fwd_plain_ms"] = time_ms(torch, lambda: shade.shade_fwd_plain(
-            seg_pack, anchors, static, True), reps=20)
+            seg_pack, anchors, static, True), reps=20, inner=1)
         out["bwd_ms"] = time_ms(torch, lambda: shade.shade_bwd(
             k_out, gcot, static))
         out["bwd_plain_ms"] = time_ms(torch, lambda: shade.shade_bwd_plain(
-            p_out, gcot, static), reps=20)
+            p_out, gcot, static), reps=20, inner=1)
     print(f"kernel check [{name}] B,T,tp,ke={tuple(seg_pack.shape[:2])},"
           f"{static.tile_px},{static.ke}: " + json.dumps(out), flush=True)
     return out
@@ -259,11 +280,11 @@ def compare_depth(torch, name, face_pack, static, timed):
         out["fwd_ms"] = time_ms(torch, lambda: depth.depth_fwd(fp, static))
         out["fwd_plain_ms"] = time_ms(
             torch, lambda: depth.depth_fwd_plain(fp, static), reps=3,
-            warmup=1)
+            warmup=1, inner=1)
         out["bwd_ms"] = time_ms(torch, lambda: depth.depth_bwd(
             k_d, k_a, gcot, static))
         out["bwd_plain_ms"] = time_ms(torch, lambda: depth.depth_bwd_plain(
-            p_d, p_a, gcot, static), reps=10)
+            p_d, p_a, gcot, static), reps=10, inner=1)
     print(f"depth check [{name}] B,T,tp,kf={tuple(fp.shape[:2])},"
           f"{static.tile_px},{static.kf}: " + json.dumps(out), flush=True)
     return out
@@ -287,18 +308,113 @@ def compare_voxelize(torch, name, verts, faces, grid, timed):
     check(bool((p > 0).any()), f"{name}: no grid point inside")
     check(torch.equal(k, V.voxelize_pack(pack, grid)),
           f"{name}: voxelizer is not deterministic")
-    n_ops = (V.OPS_PER_POINT_FACE * local.shape[0] * grid ** 3
-             * faces.shape[0])
-    bound, bound_by = _bound(pack.numel() * 4 + k.numel() * 4, n_ops)
-    out = {"phi_err": err, "inside_share": float((p > 0).float().mean()),
-           "bound_ms": bound, "bound_by": bound_by}
+    inside = p > 0
+    n_faces = faces.shape[0]
+    out_bytes = pack.numel() * 4 + k.numel() * 4
+    bound, bound_by = _bound(out_bytes, V.work_ops(
+        n_faces, int(inside.sum()), grid, local.shape[0]))
+    dense, _ = _bound(out_bytes, V.DENSE_OPS_PER_POINT_FACE * local.shape[0]
+                      * grid ** 3 * n_faces)
+    out = {"phi_err": err, "inside_share": float(inside.float().mean()),
+           "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense}
+    out["ms"] = time_ms(torch, lambda: V.voxelize_pack(pack, grid))
     if timed:
-        out["ms"] = time_ms(torch, lambda: V.voxelize_pack(pack, grid))
         out["plain_ms"] = time_ms(torch, lambda: S.voxelize_interior_sdf(
-            local, faces, grid), reps=3, warmup=1)
+            local, faces, grid), reps=3, warmup=1, inner=1)
     print(f"voxelize check [{name}] B,F,G={local.shape[0]},{faces.shape[0]},"
           f"{grid}: " + json.dumps(out), flush=True)
-    return out
+    return out, pack
+
+
+def build_variant(path):
+    """Build another source of a kernel (same flags as the package's) into
+    its own library, for a timing comparison in turns."""
+    import ctypes
+    import hashlib
+    import os
+    from homan_tpu_torch import _build
+    with open(path, "rb") as fh:
+        h = hashlib.sha256(fh.read() + " ".join(_build.NVCC_FLAGS).encode())
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"variant-{h.hexdigest()[:16]}.so")
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                          path], capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"nvcc failed on {path}: {res.stdout}"
+          f"{res.stderr}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas [variant {path}]: {line.strip()}", flush=True)
+    return ctypes.CDLL(out)
+
+
+def ab_compare(torch, specs, vox_packs, shade_input):
+    """Each `name=path.cu` of `specs` (name voxelize or shade_fwd, path
+    another source with the same C interface, e.g. the parent commit's)
+    against the package's kernel on the same inputs: its output checked,
+    then both timed in turns (package, variant, variant, package)."""
+    import ctypes
+    from homan_tpu_torch.interactions import voxelize as V
+    from homan_tpu_torch.render import shade
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for spec in specs:
+        name, path = spec.split("=", 1)
+        lib = build_variant(path)
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "voxelize":
+            fn = lib.voxelize
+            fn.argtypes = [ptr] * 2 + [i32] * 3 + [f32, ptr]
+            calls = []
+            for pack in vox_packs:
+                B, _, fpad = pack.shape
+                phi = torch.empty((B, GRID, GRID, GRID), device=pack.device)
+                ref = V.voxelize_pack(pack, GRID)
+
+                def run(pack=pack, phi=phi, B=B, fpad=fpad):
+                    check(fn(pack.data_ptr(), phi.data_ptr(), B, GRID, fpad,
+                             V.BIG, stream) == 0, f"{path}: launch failed")
+                run()
+                torch.cuda.synchronize()
+                check(torch.equal(phi > 0, ref > 0),
+                      f"{path}: inside sets differ from the package's")
+                check(float((phi - ref).abs().max()) <= 1e-5,
+                      f"{path}: phi differs from the package's")
+                calls.append((lambda pack=pack: V.voxelize_pack(pack, GRID),
+                              run))
+        elif name == "shade_fwd":
+            fn = lib.shade_fwd
+            fn.argtypes = [ptr] * 7 + [i32] * 6 + [f32] * 3 + [ptr]
+            seg, anc, st = shade_input
+            seg, anc = seg.contiguous(), anc.contiguous()
+            outs = [torch.empty(anc.shape, device=anc.device)
+                    for _ in range(5)]
+            outs[1] = torch.empty(anc.shape, dtype=torch.int32,
+                                  device=anc.device)
+            ref = shade.shade_fwd(seg, anc, st, True)
+
+            def run():
+                check(fn(seg.data_ptr(), anc.data_ptr(),
+                         *(o.data_ptr() for o in outs), seg.shape[0],
+                         seg.shape[1], st.g, st.tile_px, st.ke, 1,
+                         1.0 / st.image_size, st.sigma, st.cap2,
+                         stream) == 0, f"{path}: launch failed")
+            run()
+            torch.cuda.synchronize()
+            check(float((outs[0] - ref[0]).abs().max()) <= 2e-5,
+                  f"{path}: sil differs from the package's")
+            calls = [(lambda: shade.shade_fwd(seg, anc, st, True), run)]
+        else:
+            raise RuntimeError(f"--ab takes voxelize= or shade_fwd=, got "
+                               f"{spec}")
+        turns = {"package": [], "variant": []}
+        for who in ("package", "variant", "variant", "package"):
+            k = 0 if who == "package" else 1
+            turns[who].append(sum(time_ms(torch, c[k]) for c in calls)
+                              / len(calls))
+        out = {"turns_ms": turns,
+               "package_ms": statistics.mean(turns["package"]),
+               "variant_ms": statistics.mean(turns["variant"])}
+        print(f"ab [{name}] package vs {path}: " + json.dumps(out),
+              flush=True)
 
 
 def size_faces(demand, n_faces):
@@ -460,7 +576,16 @@ def overlap_state(scene):
     return dataclasses.replace(gt, translations_object=t)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ab", action="append", default=[],
+                        metavar="NAME=PATH.cu",
+                        help="also time another source of kernel NAME "
+                        "(voxelize, shade_fwd) against the package's, in "
+                        "turns, after the kernel checks; the fits are not "
+                        "run")
+    ab = parser.parse_args(argv).ab
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
@@ -526,10 +651,11 @@ def main() -> int:
         "evidence-hand": (v_hand, c.faces_hand, c.camintr_rois_hand,
                           R.RasterSettings(REND, tile_px=16)),
     }
-    results = {}
+    results, shade_inputs = {}, {}
     for name, (verts, topo, K, st) in packs.items():
         with torch.no_grad():
             seg, anc, _, static = R.shade_prep(verts, topo, K, st)
+        shade_inputs[name] = (seg, anc, static)
         results[name] = compare_kernels(torch, name, seg, anc, static,
                                         timed=True)
 
@@ -578,11 +704,18 @@ def main() -> int:
                 fp, _, static = R.depth_prep(v, t, c2.camintr, st)
             depth_results[(m, kf)] = compare_depth(
                 torch, f"{m}-kf{static.kf}", fp, static, timed=True)
-    vox_results = {
-        "hand": compare_voxelize(torch, "hand", v_hand2,
-                                 scene2.closed_hand_faces, GRID, timed=True),
-        "object": compare_voxelize(torch, "object", v_obj2,
-                                   c2.faces_object.faces, GRID, timed=True)}
+    vox_results, vox_packs = {}, {}
+    for m, v, f in (("hand", v_hand2, scene2.closed_hand_faces),
+                    ("object", v_obj2, c2.faces_object.faces)):
+        for grid in VOX_GRIDS:
+            vox_results[(m, grid)], vox_packs[(m, grid)] = compare_voxelize(
+                torch, f"{m}-g{grid}", v, f, grid, timed=grid == GRID)
+    if ab:
+        ab_compare(torch, ab, [vox_packs[(m, GRID)] for m in meshes],
+                   shade_inputs["fit"])
+        print("kernel checks and --ab comparisons passed; the fits are not "
+              "run", flush=True)
+        return 0
 
     # 3. The paths ----------------------------------------------------------
     # 3a. The stage-C fit at the headline shape.
@@ -650,7 +783,7 @@ def main() -> int:
         return sum(r[key] for r in rows) / len(rows)
 
     d_rows = [depth_results[(m, kf_fit)] for m in meshes]
-    v_rows = list(vox_results.values())
+    v_rows = [vox_results[(m, GRID)] for m in meshes]
     kernels = [
         {"name": "shade_fwd", "route": "cuda",
          "source": "homan_tpu_torch/render/csrc/shade.cu",

@@ -14,7 +14,10 @@ Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false`. The kernels' exact
 comparisons (the shade kernel's `cross2d == 0` and strict-< argmin ties,
 the depth kernel's `e >= 0` and strict-> argmax, the voxelizer's crossing
 parity) must agree bit for bit with their plain PyTorch versions, which
-never contract a*b+c into an FMA.
+never contract a*b+c into an FMA. A kernel writes `__fmaf_rn` itself where
+a tolerance, not bit parity, holds its result (the voxelizer's distance),
+or where the fused result is exact (the shade forward's correctly rounded
+divide).
 """
 from __future__ import annotations
 

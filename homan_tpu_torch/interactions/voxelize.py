@@ -29,14 +29,31 @@ voxelize_launches = 0
 
 TF = 128  # triangles per staging tile; Fpad is a multiple of it
 BIG = 1e9  # distance^2 of an invalid (padding) slot
-# Per (grid point, triangle), the kernel's fp32 arithmetic, compare and
-# select operations (csrc/voxelize.cu), the rare crossing branch left out:
-# the Ericson distance 73 (validity 1, ap 3, d1/d2/apap 15, d3-d6 4,
-# va/vb/vc 9, the three clamped edge distances 24, their min 2, inside_face
-# 4, the plane distance 7, the selects, the validity max and the running min
-# 4) and the crossing test 31 (three edge functions 21, inside_xy 6, area2
-# and its test 4).
-OPS_PER_POINT_FACE = 104
+GRIDS = (16, 32, 64)  # the grid sizes the kernel takes (the JAX package's)
+# The kernel's fp32 arithmetic, compare and select operations
+# (csrc/voxelize.cu), an FMA counted as two:
+# per (xy column, valid triangle), the crossing test: validity 1, three
+# edge functions 21, inside_xy 6, area2 and its test 4. The rare hit path
+# (three divides, z_tri and one compare per z cell) is left out.
+CROSS_OPS_PER_COLUMN_FACE = 32
+# per (inside grid point, valid triangle), the distance: ap 3, d1/d2 10,
+# d3-d6 4, va/vb/vc 9, the clamped edge distances |ap - t e|^2 46 (ab and
+# ac 14 each, bc 18 with bp), their min 2, inside_face 4, the plane
+# distance 7, the select and the running min 2.
+DIST_OPS_PER_POINT_FACE = 87
+# The dense sweep's count per (grid point, triangle) (the crossing test and
+# the distance at every point, as the TPU kernel and the first CUDA
+# kernel evaluate them): the yardstick `dense_bound_ms` is reckoned from.
+DENSE_OPS_PER_POINT_FACE = 104
+
+
+def work_ops(n_faces: int, n_inside: int, grid_size: int, batch: int):
+    """The operations the kernel needs on these inputs: the crossing test
+    for every (column, face) of every frame and the distance for every
+    (inside point, face); `n_faces` valid triangles per frame, `n_inside`
+    inside points over all frames."""
+    return (CROSS_OPS_PER_COLUMN_FACE * batch * grid_size ** 2 * n_faces
+            + DIST_OPS_PER_POINT_FACE * n_inside * n_faces)
 
 
 def pack_triangles(verts, faces):
@@ -79,6 +96,9 @@ def voxelize_pack(tri_pack, grid_size: int = 32):
     if tri_pack.dtype != torch.float32 or not tri_pack.is_contiguous():
         raise ValueError("tri_pack must be contiguous float32")
     g = grid_size
+    if g not in GRIDS:
+        raise ValueError(f"the voxelizer kernel takes grid sizes {GRIDS}, "
+                         f"got {g}")
     phi = torch.empty((B, g, g, g), dtype=torch.float32,
                       device=tri_pack.device)
     if B == 0:

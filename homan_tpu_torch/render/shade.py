@@ -31,13 +31,45 @@ import torch
 shade_fwd_launches = 0
 shade_bwd_launches = 0
 
-# Pixels per CUDA block; also the backward's partial-sum chunk.
+# Pixels per block of the backward's partial sums.
 BLOCK_PIXELS = 256
-# Per pixel and valid slot, the forward kernel's fp32 arithmetic, compare
-# and select operations (winding pass 18, distance pass 44; csrc/shade.cu).
-FWD_OPS_PER_PIXEL_SLOT = 62
+# Adjacent pixels of one row per thread of the forward (csrc/shade.cu kPx):
+# the tile width must be a multiple of it.
+FWD_PIXELS_PER_THREAD = 8
+# The forward kernel's fp32 arithmetic, compare and select operations
+# (csrc/shade.cu), an FMA counted as two; `fwd_work` counts what they
+# apply to. Per (valid slot, row of its tile), the records: py 4, dy and
+# dy_safe 4, spans 3, py - ay 1, the divide 1, xi 3, its fold with spans
+# and x1 3, |e|^2 and its clamp 4, the reciprocal 1, ex (py - ay) and
+# (py - ay) ey 2, and the skip test's terms 17 (the segment's x extent 2,
+# the row's gap to its y extent 6, the slack 9). The per-block count of
+# valid slots is left out.
+FWD_ROW_OPS_PER_ROW_SLOT = 43
+# Per (pixel, valid slot): pass 1's compare, select and add.
+FWD_WINDING_OPS_PER_PIXEL_SLOT = 3
+# Per (pixel group, valid slot), the skip test: the box gap 4, its length
+# 5, the comparison with the group's largest d2min 4.
+FWD_TEST_OPS_PER_GROUP_SLOT = 13
+# Per evaluated (pixel, valid slot), pass 2: px - ax 1, the numerator of
+# tc 2, its quotient 1 (the kernel's reciprocal-and-correction sequence is
+# one correctly rounded divide), its range guard 2, the clamp 2, dx 3, dyp
+# 3, d2 3, cross2d 2, its sign 4, w_other 2, relevance 5, the capped select
+# 1, the compare 1 and the argmin's five updates; and per evaluated
+# (pixel group, valid slot) the group's new largest d2min 7.
+FWD_DIST_OPS_PER_PIXEL_SLOT = 37
+FWD_DMAX_OPS_PER_GROUP_SLOT = 7
 # Per pixel, the backward's contribution math (base, wa, wb, 4 products).
 BWD_OPS_PER_PIXEL = 14
+
+
+def fwd_work_ops(work: dict) -> int:
+    """The forward kernel's operations for the counts of `fwd_work`."""
+    return (FWD_ROW_OPS_PER_ROW_SLOT * work["row_slots"]
+            + FWD_WINDING_OPS_PER_PIXEL_SLOT * work["pixel_slots"]
+            + FWD_TEST_OPS_PER_GROUP_SLOT * work["group_slots"]
+            + (FWD_PIXELS_PER_THREAD * FWD_DIST_OPS_PER_PIXEL_SLOT
+               + FWD_DMAX_OPS_PER_GROUP_SLOT)
+            * work["evaluated_group_slots"])
 
 
 class ShadeStatic(NamedTuple):
@@ -69,18 +101,15 @@ def _pixel_coords(static: ShadeStatic, T: int, device):
     return px, py, x1
 
 
-def shade_fwd_plain(seg_pack, anchors, static: ShadeStatic,
-                    want_residuals: bool = True):
-    """Loop over slots; every temporary is (B, T, tp, tp)."""
-    B, T = seg_pack.shape[:2]
+def winding_plain(seg_pack, anchors, static: ShadeStatic):
+    """The forward's pass 1: winding (B, T, tp, tp) = anchor + the oriented
+    crossings of each pixel's +x ray inside (px, x1]."""
+    T = seg_pack.shape[1]
     dev = seg_pack.device
     px, py, x1 = _pixel_coords(static, T, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    one = torch.ones((), **f32)
-    zero = torch.zeros((), **f32)
-    cap2 = torch.tensor(static.cap2, **f32)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     seg = seg_pack[..., None, None]  # (B, T, 8, ke, 1, 1)
-
     winding = anchors.clone()
     for k in range(static.ke):
         ax, ay, bx, by, sgn = (seg[:, :, r, k] for r in range(5))
@@ -91,6 +120,39 @@ def shade_fwd_plain(seg_pack, anchors, static: ShadeStatic,
         xi = ax + tt * (bx - ax)
         cross = spans & (xi > px) & (xi <= x1)
         winding = winding + torch.where(cross, sgn, zero)
+    return winding
+
+
+def _slot_d2(seg, k, px, py, winding, covered, cap2):
+    """Pass 2 for slot k: the capped distance^2 of every pixel to segment
+    k (cap2 where the segment is not silhouette-relevant) and the residual
+    geometry (dx, dyp, tc)."""
+    ax, ay, bx, by = (seg[:, :, r, k] for r in range(4))
+    flipk = seg[:, :, 6, k]
+    ex = bx - ax
+    ey = by - ay
+    denom = torch.clamp(ex * ex + ey * ey, min=1e-12)
+    tc = torch.clamp(((px - ax) * ex + (py - ay) * ey) / denom, 0.0, 1.0)
+    dx = px - (ax + tc * ex)
+    dyp = py - (ay + tc * ey)
+    d2 = dx * dx + dyp * dyp
+    cross2d = ex * (py - ay) - ey * (px - ax)
+    w_other = winding - flipk * torch.sign(cross2d)
+    rel = (w_other.abs() < 0.5) | (cross2d == 0.0) | ~covered
+    return torch.where(rel, d2, cap2), dx, dyp, tc
+
+
+def shade_fwd_plain(seg_pack, anchors, static: ShadeStatic,
+                    want_residuals: bool = True):
+    """Loop over slots; every temporary is (B, T, tp, tp)."""
+    T = seg_pack.shape[1]
+    dev = seg_pack.device
+    px, py, _ = _pixel_coords(static, T, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cap2 = torch.tensor(static.cap2, **f32)
+    seg = seg_pack[..., None, None]  # (B, T, 8, ke, 1, 1)
+
+    winding = winding_plain(seg_pack, anchors, static)
     covered = winding.abs() > 0.5
 
     shape = winding.shape
@@ -100,19 +162,7 @@ def shade_fwd_plain(seg_pack, anchors, static: ShadeStatic,
     rym = torch.zeros(shape, **f32)
     tcm = torch.zeros(shape, **f32)
     for k in range(static.ke):
-        ax, ay, bx, by = (seg[:, :, r, k] for r in range(4))
-        flipk = seg[:, :, 6, k]
-        ex = bx - ax
-        ey = by - ay
-        denom = torch.clamp(ex * ex + ey * ey, min=1e-12)
-        tc = torch.clamp(((px - ax) * ex + (py - ay) * ey) / denom, 0.0, 1.0)
-        dx = px - (ax + tc * ex)
-        dyp = py - (ay + tc * ey)
-        d2 = dx * dx + dyp * dyp
-        cross2d = ex * (py - ay) - ey * (px - ax)
-        w_other = winding - flipk * torch.sign(cross2d)
-        rel = (w_other.abs() < 0.5) | (cross2d == 0.0) | ~covered
-        d2 = torch.where(rel, d2, cap2)
+        d2, dx, dyp, tc = _slot_d2(seg, k, px, py, winding, covered, cap2)
         better = d2 < d2min
         d2min = torch.where(better, d2, d2min)
         if want_residuals:
@@ -125,6 +175,53 @@ def shade_fwd_plain(seg_pack, anchors, static: ShadeStatic,
     if not want_residuals:
         return (sil,)
     return sil, amin, rxm, rym, tcm
+
+
+def fwd_work(seg_pack, anchors, static: ShadeStatic) -> dict:
+    """What the forward kernel works on these inputs, counted by replaying
+    its order of work: (row, valid slot) records, (pixel, valid slot) pass-1
+    steps, (pixel group, valid slot) skip tests, and the (pixel group,
+    valid slot) pairs whose pass-2 distances it evaluates. A pixel group is
+    one thread's FWD_PIXELS_PER_THREAD adjacent pixels of a row; it skips a
+    slot when the gap between its pixels' box and the segment's box, less
+    a slack, exceeds the square root of the largest d2min of its pixels (the
+    kernel's float32 expressions, so the count is exact)."""
+    B, T = seg_pack.shape[:2]
+    tp, npx = static.tile_px, FWD_PIXELS_PER_THREAD
+    dev = seg_pack.device
+    px, py, _ = _pixel_coords(static, T, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cap2 = torch.tensor(static.cap2, **f32)
+    seg = seg_pack[..., None, None]
+    n_e = (seg_pack[:, :, 5] > 0.5).sum(-1)  # (B, T)
+    n_valid = int(n_e.sum())
+    winding = winding_plain(seg_pack, anchors, static)
+    covered = winding.abs() > 0.5
+    d2min = torch.full(winding.shape, static.cap2, **f32)
+    px_first, px_last = px[..., ::npx], px[..., npx - 1::npx]
+    evaluated = 0
+    for k in range(static.ke):
+        live = (k < n_e)[..., None, None]
+        if not bool(live.any()):
+            break
+        ax, ay, bx, by = (seg[:, :, r, k] for r in range(4))
+        big = torch.maximum(torch.maximum(ax.abs(), bx.abs()),
+                            torch.maximum(ay.abs(), by.abs()))
+        slack = (big + 2.0) * 2.0 ** -18
+        ygap = torch.clamp(torch.maximum(torch.minimum(ay, by) - py,
+                                         py - torch.maximum(ay, by)), min=0)
+        gap = torch.clamp(torch.maximum(torch.minimum(ax, bx) - px_last,
+                                        px_first - torch.maximum(ax, bx)),
+                          min=0)
+        lo = torch.sqrt(gap * gap + ygap * ygap) - slack
+        dmax = d2min.reshape(B, T, tp, tp // npx, npx).amax(-1)
+        skip = (lo > 0) & (lo * lo > dmax * (1.0 + 2.0 ** -18))
+        evaluated += int((live & ~skip).sum())
+        d2 = _slot_d2(seg, k, px, py, winding, covered, cap2)[0]
+        d2min = torch.where(live & (d2 < d2min), d2, d2min)
+    return {"row_slots": n_valid * tp, "pixel_slots": n_valid * tp * tp,
+            "group_slots": n_valid * tp * (tp // npx),
+            "evaluated_group_slots": evaluated}
 
 
 def _bwd_contrib(sil, rx, ry, tc, gcot, sigma: float):
@@ -200,6 +297,11 @@ def shade_fwd(seg_pack, anchors, static: ShadeStatic,
     dev = seg_pack.device
     _check("seg_pack", seg_pack, (B, T, 8, ke), torch.float32, dev)
     _check("anchors", anchors, (B, T, tp, tp), torch.float32, dev)
+    if tp % FWD_PIXELS_PER_THREAD:
+        raise ValueError(f"the shade kernel takes tiles of a multiple of "
+                         f"{FWD_PIXELS_PER_THREAD} pixels, got {tp}")
+    if anchors.data_ptr() % 16:  # the kernel reads anchors as float4
+        anchors = anchors.clone()
     px_shape = (B, T, tp, tp)
     sil = torch.empty(px_shape, dtype=torch.float32, device=dev)
     if want_residuals:

@@ -60,7 +60,9 @@ def _pack(device, mesh, S, tp, ke):
 @pytest.mark.parametrize("case", [("object", 64, 32, 96),
                                   ("object", 32, 16, 64),
                                   ("hand", 64, 16, 64),
-                                  ("object", 64, 64, 48)])
+                                  ("object", 64, 64, 48),
+                                  ("object", 256, 128, 96),
+                                  ("hand", 128, 16, 48)])
 def test_kernels_match_plain(cuda, case):
     seg, anc, static = _pack(cuda, *case)
     n0, m0 = shade.shade_fwd_launches, shade.shade_bwd_launches
@@ -136,13 +138,32 @@ def test_depth_kernels_match_plain(cuda, case):
     assert not bool(torch.cat([g_k[:, :, :9], g_k[:, :, 12:]], 2).any())
 
 
+def nested_shells(n=6):
+    """n nested closed spheres in the unit box: the central columns cross
+    the mesh 2n times."""
+    from homan_tpu_torch.core.meshes import icosphere
+    vs, fs, off = [], [], 0
+    for i in range(n):
+        v, f = icosphere(2, 0.95 - 0.13 * i)
+        vs.append(np.asarray(v, np.float32))
+        fs.append(np.asarray(f, np.int64) + off)
+        off += len(v)
+    return np.concatenate(vs)[None], np.concatenate(fs)
+
+
 @pytest.mark.parametrize("mesh,grid", [("object", 16), ("object", 32),
-                                       ("hand", 32)])
+                                       ("hand", 32), ("hand", 16),
+                                       ("object", 64), ("hand", 64),
+                                       ("shells", 32), ("shells", 64)])
 def test_voxelizer_kernel_matches_plain(cuda, mesh, grid):
-    verts, faces, _ = raster_mesh(mesh)
-    v = torch.from_numpy(verts).to(cuda)
-    center, scale = tsdf.normalize_to_unit_box(v)
-    local = (v - center) / scale
+    if mesh == "shells":
+        verts, faces = nested_shells()
+        local = torch.from_numpy(verts).to(cuda)
+    else:
+        verts, faces, _ = raster_mesh(mesh)
+        v = torch.from_numpy(verts).to(cuda)
+        center, scale = tsdf.normalize_to_unit_box(v)
+        local = (v - center) / scale
     f = torch.from_numpy(np.asarray(faces, np.int64)).to(cuda)
     n0 = tvox.voxelize_launches
     k = tvox.voxelize(local, f, grid)
@@ -151,3 +172,18 @@ def test_voxelizer_kernel_matches_plain(cuda, mesh, grid):
     assert bool((p > 0).any())
     assert torch.equal(k > 0, p > 0)
     assert (k - p).abs().max().item() <= 1e-5
+    assert torch.equal(k, tvox.voxelize(local, f, grid))  # deterministic
+    if mesh == "shells":  # the central column crosses each shell twice
+        tri = local[0][f]
+        c = grid // 2
+        axis = tsdf.grid_points(grid, cuda)[(c * grid + c) * grid][:2]
+        assert int(((tri[:, :, :2].amin(1) <= axis)
+                    & (tri[:, :, :2].amax(1) >= axis)).all(1).sum()) >= 12
+
+
+def test_voxelizer_kernel_refuses_other_grids(cuda):
+    verts, faces = nested_shells(1)
+    pack = tvox.pack_triangles(torch.from_numpy(verts).to(cuda),
+                               torch.from_numpy(faces).to(cuda))
+    with pytest.raises(ValueError, match="grid sizes"):
+        tvox.voxelize_pack(pack, 8)

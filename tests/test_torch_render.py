@@ -123,3 +123,107 @@ def test_kernel_wrappers_refuse_other_devices():
     res = (anc,) * 5
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tshade.shade_bwd(res, anc, static)
+
+
+# ---------------------------------------------------------------------------
+# The shade forward kernel's order of work, restated on the CPU
+# ---------------------------------------------------------------------------
+def _winding_by_rows(seg_pack, anchors, static):
+    """Pass 1 in the kernel's order of work: per (row, valid slot) the
+    crossing x of the row's ray, folded with `spans` and `xi <= x1` into xi
+    or -inf, computed once per row; then per pixel one compare and the add
+    of the slot's sign, over the tile's first n_e slots."""
+    T = seg_pack.shape[1]
+    px, py, x1 = tshade._pixel_coords(static, T, seg_pack.device)
+    assert py.shape[-1] == 1  # py holds one value per row
+    n_e = (seg_pack[:, :, 5] > 0.5).sum(-1)[..., None, None]  # (B, T, 1, 1)
+    seg = seg_pack[..., None, None]
+    winding = anchors.clone()
+    for k in range(static.ke):
+        ax, ay, bx, by, sgn = (seg[:, :, r, k] for r in range(5))
+        dy = by - ay
+        dy_safe = torch.where(dy.abs() > 1e-12, dy, torch.ones(()))
+        spans = (ay <= py) != (by <= py)
+        xi = ax + (py - ay) / dy_safe * (bx - ax)  # (B, T, tp, 1): per row
+        xi = torch.where(spans & (xi <= x1), xi, torch.tensor(-np.inf))
+        live = k < n_e
+        winding = winding + torch.where(live & (xi > px), sgn,
+                                        torch.zeros(()))
+    return winding
+
+
+@pytest.mark.parametrize("case", [("object", 64, 16, 64),
+                                  ("hand", 64, 16, 64),
+                                  ("object", 64, 32, 96),
+                                  ("object", 256, 128, 96)],
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_row_crossings_match_plain_winding(case):
+    mesh, S, tp, ke = case
+    verts, faces, K = raster_mesh(mesh)
+    seg, anc, _, static = tr.shade_prep(
+        torch.from_numpy(verts), tr.MeshTopology.from_faces(faces, "cpu"),
+        torch.from_numpy(K), tr.RasterSettings(S, tile_px=tp,
+                                               edges_per_tile=ke))
+    ref = tshade.winding_plain(seg, anc, static)
+    ours = _winding_by_rows(seg, anc, static)
+    assert torch.equal(ours, ref)
+    assert bool((ref.abs() > 0.5).any()) and bool((ref.abs() < 0.5).any())
+
+
+def _skip_count_by_loops(seg, anc, static):
+    """The kernel's pass-2 skip decisions, one (row, pixel group, slot) at
+    a time with numpy float32 scalars, over the plain version's running
+    d2min: the number of (pixel group, slot) pairs it evaluates."""
+    f = np.float32
+    tp, npx = static.tile_px, tshade.FWD_PIXELS_PER_THREAD
+    px, py, _ = tshade._pixel_coords(static, 1, "cpu")
+    px, py = t2n(px)[0, 0, 0], t2n(py)[0, 0, :, 0]
+    sg = seg[..., None, None]
+    wind = tshade.winding_plain(seg, anc, static)
+    cap2 = torch.tensor(static.cap2)
+    d2s = [t2n(tshade._slot_d2(sg, k, *tshade._pixel_coords(static, 1, "cpu")
+                               [:2], wind, wind.abs() > 0.5, cap2)[0])[0, 0]
+           for k in range(static.ke)]
+    s = t2n(seg)[0, 0]
+    n_e = int((s[5] > 0.5).sum())
+    d2min = np.full((tp, tp), f(static.cap2), np.float32)
+    count = 0
+    for k in range(n_e):
+        ax, ay, bx, by = (f(v) for v in s[:4, k])
+        slack = (max(abs(ax), abs(bx), abs(ay), abs(by)) + f(2)) * f(2 ** -18)
+        for r in range(tp):
+            ygap = max(min(ay, by) - py[r], py[r] - max(ay, by), f(0))
+            for g0 in range(0, tp, npx):
+                gap = max(min(ax, bx) - px[g0 + npx - 1],
+                          px[g0] - max(ax, bx), f(0))
+                lo = np.sqrt(gap * gap + ygap * ygap, dtype=np.float32) - slack
+                dmax = d2min[r, g0:g0 + npx].max()
+                if not (lo > 0 and lo * lo > dmax * f(1 + 2 ** -18)):
+                    count += 1
+        d2min = np.where(d2s[k] < d2min, d2s[k], d2min)
+    return count
+
+
+def test_shade_forward_op_count_two_triangles():
+    """Two separate triangles in one 16-pixel tile: six contour edges, so
+    six valid slots, each worked on 16 rows, 256 pixels and 32 groups of 8
+    pixels; the groups that evaluate a slot, counted by loops."""
+    verts = np.array([[[-0.3, -0.3, 1.0], [-0.05, -0.3, 1.0],
+                       [-0.3, -0.05, 1.0], [0.1, 0.1, 1.2], [0.3, 0.1, 1.2],
+                       [0.1, 0.3, 1.2]]], np.float32)
+    faces = np.array([[0, 1, 2], [3, 4, 5]])
+    K = np.array([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]], np.float32)
+    seg, anc, _, static = tr.shade_prep(
+        torch.from_numpy(verts), tr.MeshTopology.from_faces(faces, "cpu"),
+        torch.from_numpy(K), tr.RasterSettings(16, tile_px=16,
+                                               edges_per_tile=8,
+                                               bin_margin_px=2.0))
+    work = tshade.fwd_work(seg, anc, static)
+    evaluated = _skip_count_by_loops(seg, anc, static)
+    assert work == {"row_slots": 6 * 16, "pixel_slots": 6 * 256,
+                    "group_slots": 6 * 32,
+                    "evaluated_group_slots": evaluated}
+    assert 0 < evaluated < 6 * 32  # some groups skip some slots
+    by_hand = (43 * 96 + 3 * 1536 + 13 * 192
+               + (8 * 37 + 7) * evaluated)  # records, pass 1, tests, pass 2
+    assert tshade.fwd_work_ops(work) == by_hand

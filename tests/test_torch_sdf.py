@@ -368,3 +368,125 @@ def test_shared_grids_match_standalone_terms():
         hand, obj, f, f, **kw)["loss_collision"])
     assert torch.equal(con["loss_contact"], TL.compute_contact_loss_term(
         hand, obj, f, f, **kw)["loss_contact"])
+
+
+# ---------------------------------------------------------------------------
+# The voxelizer kernel's order of work, restated on the CPU
+# ---------------------------------------------------------------------------
+def _column_parity(tri_pack, g):
+    """Inside sets (B, G, G, G) in the kernel's order of work: per xy
+    column, the crossing test of every valid triangle of the pack in the
+    plain version's expressions, giving the column's list of hit heights;
+    then, per z cell, the count of hits above the cell's centre."""
+    axis = -1.0 + (2.0 * torch.arange(g, dtype=torch.float32) + 1.0) / g
+    cpx = axis.repeat_interleave(g)[:, None]  # column ix * G + iy
+    cpy = axis.repeat(g)[:, None]
+    out = []
+    for pack in tri_pack:
+        valid = pack[9] > 0.5
+        ax, ay, az, bx, by, bz, cx, cy, cz = (r[None] for r in pack[:9])
+        e0 = (bx - ax) * (cpy - ay) - (by - ay) * (cpx - ax)
+        e1 = (cx - bx) * (cpy - by) - (cy - by) * (cpx - bx)
+        e2 = (ax - cx) * (cpy - cy) - (ay - cy) * (cpx - cx)
+        inside_xy = (((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+                     | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)))
+        area2 = e0 + e1 + e2
+        hit = valid & inside_xy & (area2.abs() > 1e-12)
+        counts = []
+        for col in range(g * g):
+            h = hit[col]
+            z_hits = (e1[col, h] / area2[col, h] * az[0, h]
+                      + e2[col, h] / area2[col, h] * bz[0, h]
+                      + e0[col, h] / area2[col, h] * cz[0, h])
+            counts.append((z_hits[None, :] > axis[:, None]).sum(1))
+        out.append((torch.stack(counts) % 2 == 1).reshape(g, g, g))
+    return torch.stack(out)
+
+
+def _octahedron(center, radius):
+    """Closed octahedron whose top and bottom vertices lie on the xy column
+    through `center`: that column crosses the mesh at a shared vertex."""
+    c = np.asarray(center, np.float32)
+    v = c + radius * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                               [0, 0, 1], [0, 0, -1]], np.float32)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int64)
+    return v[None], f
+
+
+def _nested_shells(n=6):
+    """n nested closed spheres: the central columns cross the mesh 2n
+    times."""
+    vs, fs, off = [], [], 0
+    for i in range(n):
+        v, f = icosphere(2, 0.95 - 0.13 * i)
+        vs.append(np.asarray(v, np.float32))
+        fs.append(np.asarray(f, np.int64) + off)
+        off += len(v)
+    return np.concatenate(vs)[None], np.concatenate(fs)
+
+
+def _synthetic_hand():
+    from homan_tpu_torch.core import mano as tmano
+    p = tmano.synthetic_mano_params(0, device="cpu")
+    z = torch.zeros(1, 3)
+    out = tmano.mano_forward(p, torch.zeros(1, 10), z, torch.zeros(1, 45))
+    verts = out["verts"]
+    center, scale = tsdf.normalize_to_unit_box(verts)
+    return t2n((verts - center) / scale), p["faces"].numpy().astype(np.int64)
+
+
+_PARITY_MESHES = {
+    "bumpy": lambda: _bumpy(b=2),
+    "hand": _synthetic_hand,
+    "vertex_column": lambda: _octahedron([0.0625, 0.0625, 0.0], 0.6),
+    "nested_shells": _nested_shells,
+}
+
+
+@pytest.mark.parametrize("grid", [16, 32])
+@pytest.mark.parametrize("mesh", list(_PARITY_MESHES))
+def test_column_parity_matches_plain_crossings(mesh, grid):
+    verts, faces = _PARITY_MESHES[mesh]()
+    v = torch.from_numpy(verts)
+    f = torch.from_numpy(faces)
+    pack = tvox.pack_triangles(v, f)
+    ours = _column_parity(pack, grid)
+    points = tsdf.grid_points(grid)[:, None, :]
+    for b in range(v.shape[0]):
+        tri = v[b][f]
+        a, bb, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+        ref = torch.cat([tsdf._ray_z_crossings(p, a, bb, c)
+                         for p in torch.split(points, 2048)])
+        assert torch.equal(ours[b].reshape(-1), ref), (mesh, grid, b)
+    assert bool(ours.any()) and not bool(ours.all())
+
+
+def test_vertex_column_counts_a_shared_vertex_per_face():
+    """The column through the octahedron's top and bottom vertices hits
+    each of the four faces that meet at each vertex (an edge function of 0
+    counts on both sides), as the plain version does: an even count at
+    every z cell, so the column stays outside while its neighbours do
+    not."""
+    verts, faces = _octahedron([0.0625, 0.0625, 0.0], 0.6)
+    ours = _column_parity(tvox.pack_triangles(torch.from_numpy(verts),
+                                              torch.from_numpy(faces)), 16)
+    assert not bool(ours[0, 8, 8].any())  # the vertex column
+    assert bool(ours[0, 9, 9, 5:11].all())  # |x|+|y|+|z| < 0.6
+
+
+def test_voxelizer_op_count_two_triangles():
+    """Two triangles covering the grid's xy square at z = -0.5 and 0.5, at
+    G 16: 256 columns, and the 8 z cells between the triangles of every
+    column inside (pz = -0.4375 ... 0.4375)."""
+    big = [[-4.0, -4.0], [8.0, -4.0], [-4.0, 8.0]]
+    verts = np.array([[x, y, z] for z in (-0.5, 0.5) for x, y in big],
+                     np.float32)[None]
+    faces = np.array([[0, 1, 2], [3, 4, 5]], np.int64)
+    phi = tvox.voxelize(torch.from_numpy(verts), torch.from_numpy(faces), 16)
+    n_inside = int((phi > 0).sum())
+    assert n_inside == 256 * 8
+    by_hand = 32 * 256 * 2 + 87 * 2048 * 2  # crossing + distance
+    assert tvox.work_ops(2, n_inside, 16, 1) == by_hand == 372736
+    dense = 104 * 16 ** 3 * 2
+    assert tvox.DENSE_OPS_PER_POINT_FACE * 16 ** 3 * 2 == dense
