@@ -3,30 +3,70 @@
 // Replaces the TPU kernels _depth_fwd_kernel (homan_tpu/render/
 // pallas_depth.py:56) and _depth_bwd_kernel (:180). The plain PyTorch
 // versions in render/depth.py compute the same expressions in the same
-// order; render/depth.py documents the math.
+// order; render/depth.py documents the math and replays the forward's cull
+// on the host (`fwd_work`).
 //
-// Design.
-//  * Forward: one thread per pixel, 256 pixels of one tile per block, grid
-//    (tp*tp/256, T, B) -- 10,240 blocks at 10 frames x 64 tiles of 64^2.
-//    The block counts its tile's valid slots (a prefix, from the binning)
-//    and stages them through shared memory 256 slots at a time (13 rows x
-//    256 floats, 13 KB); every thread then reads the same slot at once, a
-//    broadcast. The scan runs k < n_hit with strict `>` from best = 0, which
-//    gives the TPU kernel's chunked first-match argmax: the lowest slot wins
-//    a tie, and amax = -1 where no face covers the pixel.
-//  * Bound: compute. ~22 fp32 operations per pixel and valid slot against 8
-//    bytes of output per pixel. The backward does ~6 operations per pixel
-//    against 12 bytes read per pixel and the (B, T, 16, Kf) gpack written,
-//    so it is bound by bytes.
-//  * Backward: a deterministic segmented reduction. Each block walks the
-//    DISTINCT winning slots of its 256 pixels in ascending order (a block
-//    min per step), reduces each slot's contributions in a fixed order
-//    (warp shuffles, then the 8 warp sums in order) into per-block partials
-//    (B, T, C, 3, Kf), zero where the block has no pixel; a second kernel
-//    sums the C partials in order into rows 9-11 of gpack (B, T, 16, Kf),
-//    every other row zero. No atomics on floats. Walking distinct slots, not
-//    every slot up to the block's largest, keeps the step count at the few
-//    dozen faces a 4 x 64-pixel strip shows, at any Kf.
+// What bounds the forward. Per pixel and valid slot the z-buffer does ~22
+// fp32 operations, but a face's edge lines hold (e_i >= 0) over a few dozen
+// of a 64^2 tile's 4,096 pixels, and the busy tiles of a frame hold ~1,000
+// faces while most tiles hold none. So the work is set by how few (pixel,
+// slot) pairs a kernel can prove empty, and its time by the busiest tiles.
+//
+// Forward design.
+//  * A block owns a 16 x 16 region of one tile (tp a multiple of 16); a
+//    warp owns an 8 x 8 sub-tile of it, 2 adjacent pixels of one row per
+//    lane. Grid ((tp/16)^2, T, B), 128 threads: a busy 64^2 tile
+//    spreads over 16 blocks, which the scheduler places on many SMs (at
+//    R = 32 the busy tiles' warps crowded fewer SMs and the forward took
+//    1.2x as long; 16 x 16 sub-tiles at 8 pixels a lane, 1.7-2.2x:
+//    PERF.md).
+//  * The block stages its tile's valid slots (a prefix, from the binning)
+//    one per thread per pass, and keeps a slot only if it can be inside
+//    somewhere in the block's region; a warp then keeps, from the staged
+//    slots, those that can be inside somewhere in its sub-tile. Both tests
+//    are exact culls: skip a slot only when some edge is negative at every
+//    pixel centre of the box as the kernel rounds it. e is linear, so its
+//    largest value over the box is at a corner centre; the rounded e at any
+//    pixel lies within 6.1 u (|a| + |b| + |c|) of the exact one (u = 2^-24,
+//    three roundings, pixel coordinates in (0, 1)), so a slot whose rounded
+//    corner maximum plus the slack (|a| + |b| + |c|) 2^-20 is negative can
+//    never pass `e >= 0` at any pixel of the box.
+//  * Survivors are compacted with __ballot_sync / __popc in ascending slot
+//    order, at both levels, so each pixel still scans its candidates in
+//    slot order with strict `>` from best = 0: the lowest slot wins a tie,
+//    and amax is the slot's index in the tile. A culled slot is never
+//    inside, so the outputs are bit-identical to the plain version's.
+//  * Register blocking: a lane reads a slot's 12 coefficients once, as
+//    three float4 broadcasts from shared memory, for all its pixels.
+//  * A pass loads the next pass's slots before it culls and scans its own,
+//    so the loads' latency hides behind that work. A tile whose slot 0 is
+//    not valid is empty: its blocks write 0 and -1 and leave.
+//
+// Backward design.
+//  * Bound: bytes. ~6 operations per pixel against 12 bytes read per pixel
+//    and the (B, T, 16, Kf) gpack written; ~98% of the depth fit's pixels
+//    are uncovered, so writing gpack is most of the work.
+//  * A deterministic segmented reduction in two launches, no float atomics.
+//    The first, per 256-pixel chunk: each warp walks the DISTINCT winning
+//    slots of its 32 pixels in ascending order (__reduce_min_sync) and
+//    reduces each one's contributions by a shuffle tree; the first warp
+//    that holds a slot sums the warps' values in warp order and writes
+//    the chunk's compact list: the count, then (k, v0, v1, v2) per
+//    distinct slot. Nothing is zero-filled, and no barrier is taken per
+//    slot.
+//  * The second runs one block per tile: it clears a 3 x Kf accumulator in
+//    shared memory (in windows of kWindow slots), adds the chunks' lists in
+//    chunk order (the slots of one list are distinct, so threads add
+//    without conflict), and writes the tile's 16 x Kf gpack once, rows 9-11
+//    from shared memory and zeros elsewhere. Each slot's sum runs
+//    0 + p_0 + p_1 + ... over the chunks that hold it, which is the dense
+//    per-chunk sum (a (3, Kf) partial per chunk, added in chunk order) with
+//    its +0.0 terms left out; the sum starts at +0.0 and so is never -0.0,
+//    so the two are bit-equal.
+//  * One launch with a block per tile, walking its chunks in turn and
+//    adding them in shared memory, took 1.9-2.4x as long as these two on
+//    the depth fit's packs (PERF.md): a tile's chunks ran one after
+//    another on one SM, where here they spread over the card.
 //  * Exactness: built with -fmad=false. The `e >= 0` inside tests and the
 //    strict-> argmax are exact comparisons; an FMA-contracted a*b+c would
 //    flip them against the plain version, which never contracts.
@@ -35,81 +75,222 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlots = 256;  // face slots staged in shared memory per pass
-constexpr int kRows = 13;    // A0..Cz and valid
+// Forward geometry (render/depth.py FWD_SUB, FWD_REGION).
+constexpr int kSub = 8;      // a warp's sub-tile side
+constexpr int kPx = 2;       // adjacent pixels of one row per lane
+constexpr int kRegion = 16;  // a block's region side
+static_assert(kSub * kSub == 32 * kPx, "a warp covers its sub-tile");
+constexpr int kLanesPerRow = kSub / kPx;
+constexpr int kRegionWarps = kRegion / kSub;  // sub-tiles per region row
+constexpr int kFwdWarps = kRegionWarps * kRegionWarps;
+constexpr int kFwdThreads = 32 * kFwdWarps;
 
-__global__ void __launch_bounds__(kThreads)
+// Backward.
+constexpr int kThreads = 256;  // pixels per chunk
+constexpr int kWarps = kThreads / 32;
+// One chunk's list: the count (padded to 16 bytes), then a float4
+// (k as int bits, v0, v1, v2) per distinct slot.
+constexpr int kListFloats = 4 + 4 * kThreads;
+constexpr int kWindow = 2048;  // finalize: accumulator slots per pass
+constexpr int kGroup = 8;      // finalize: chunk lists loaded together
+
+// e = a px + b py + c may reach >= 0 somewhere in the box of pixel centres
+// [x0, x1] x [y0, y1]: its rounded maximum over the four corners plus the
+// slack that covers the rounding at every pixel of the box.
+__device__ __forceinline__ bool edge_may_hold(float a, float b, float c,
+                                              float x0, float x1, float y0,
+                                              float y1) {
+  const float m = fmaxf(fmaxf(a * x0 + b * y0 + c, a * x1 + b * y0 + c),
+                        fmaxf(a * x0 + b * y1 + c, a * x1 + b * y1 + c));
+  const float slack = (fabsf(a) + fabsf(b) + fabsf(c)) * 0x1p-20f;
+  return m + slack >= 0.0f;
+}
+
+// The slot's coefficients as staged: (A0 B0 C0 A1) (B1 C1 A2 B2)
+// (C2 Az Bz Cz).
+__device__ __forceinline__ bool face_may_cover(const float4& a,
+                                               const float4& b,
+                                               const float4& c, float x0,
+                                               float x1, float y0,
+                                               float y1) {
+  return edge_may_hold(a.x, a.y, a.z, x0, x1, y0, y1) &&
+         edge_may_hold(a.w, b.x, b.y, x0, x1, y0, y1) &&
+         edge_may_hold(b.z, b.w, c.x, x0, x1, y0, y1);
+}
+
+// Rows r..r+3 of slot k (k + r * kf given as `at`), or zeros.
+__device__ __forceinline__ float4 load_slot(const float* pack, int kf,
+                                            int at, bool load) {
+  if (!load) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  return make_float4(pack[at], pack[at + kf], pack[at + 2 * kf],
+                     pack[at + 3 * kf]);
+}
+
+// A lane's kPx pixels: depth = 1 / max(best, 1e-9) and the winning slot
+// where best > 0, else 0 and -1.
+__device__ __forceinline__ void store_px(float* depth, int* amax, size_t pix,
+                                         const float* best, const int* am) {
+  static_assert(kPx == 2, "a lane's pixels move as one float2 and one int2");
+  float d[kPx];
+  int a_out[kPx];
+#pragma unroll
+  for (int q = 0; q < kPx; ++q) {
+    const bool covered = best[q] > 0.0f;
+    d[q] = covered ? 1.0f / fmaxf(best[q], 1e-9f) : 0.0f;
+    a_out[q] = covered ? am[q] : -1;
+  }
+  *reinterpret_cast<float2*>(depth + pix) = make_float2(d[0], d[1]);
+  *reinterpret_cast<int2*>(amax + pix) = make_int2(a_out[0], a_out[1]);
+}
+
+__global__ void __launch_bounds__(kFwdThreads)
 depth_fwd_kernel(const float* __restrict__ face_pack,
                  float* __restrict__ depth, int* __restrict__ amax, int T,
                  int g, int tp, int kf, float inv_s) {
-  __shared__ float s_face[kRows][kSlots];
-  __shared__ int s_nhit;
+  __shared__ float4 s_slot[3][kFwdThreads];  // the staged survivors
+  __shared__ int s_id[kFwdThreads];          // their slots in the tile
+  __shared__ unsigned short s_list[kFwdWarps][kFwdThreads];
+  __shared__ int s_count[kFwdWarps];
+
+  const int per_row = tp / kRegion;
   const int t = blockIdx.y;
   const size_t tile = (size_t)blockIdx.z * T + t;
   const float* pack = face_pack + tile * 16 * kf;
-  if (threadIdx.x == 0) s_nhit = 0;
-  __syncthreads();
-  int cnt = 0;
-  for (int i = threadIdx.x; i < kf; i += kThreads) {
-    cnt += pack[12 * kf + i] > 0.5f;
-  }
-  atomicAdd(&s_nhit, cnt);  // integer sum: order-independent
-  __syncthreads();
-  const int n_hit = s_nhit;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rx0 = (int)(blockIdx.x % per_row) * kRegion;
+  const int ry0 = (int)(blockIdx.x / per_row) * kRegion;
+  const int wx0 = rx0 + (warp % kRegionWarps) * kSub;
+  const int wy0 = ry0 + (warp / kRegionWarps) * kSub;
 
-  const int P = tp * tp;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+  // Pixel centres in the plain version's expressions.
   const float gx = (float)(t % g);
   const float gy = (float)(t / g);
-  const float ix = (float)(p % tp);
-  const float iy = (float)(p / tp);
   const float ftp = (float)tp;
-  const float px = (gx * ftp + ix + 0.5f) * inv_s;
-  const float py = (gy * ftp + iy + 0.5f) * inv_s;
+  const float bx0 = (gx * ftp + (float)rx0 + 0.5f) * inv_s;
+  const float bx1 = (gx * ftp + (float)(rx0 + kRegion - 1) + 0.5f) * inv_s;
+  const float by0 = (gy * ftp + (float)ry0 + 0.5f) * inv_s;
+  const float by1 = (gy * ftp + (float)(ry0 + kRegion - 1) + 0.5f) * inv_s;
+  const float sx0 = (gx * ftp + (float)wx0 + 0.5f) * inv_s;
+  const float sx1 = (gx * ftp + (float)(wx0 + kSub - 1) + 0.5f) * inv_s;
+  const float sy0 = (gy * ftp + (float)wy0 + 0.5f) * inv_s;
+  const float sy1 = (gy * ftp + (float)(wy0 + kSub - 1) + 0.5f) * inv_s;
+  const int iy = wy0 + lane / kLanesPerRow;
+  const int ix0 = wx0 + (lane % kLanesPerRow) * kPx;
+  const float py = (gy * ftp + (float)iy + 0.5f) * inv_s;
+  float px[kPx], best[kPx];
+  int am[kPx];
+#pragma unroll
+  for (int q = 0; q < kPx; ++q) {
+    px[q] = (gx * ftp + (float)(ix0 + q) + 0.5f) * inv_s;
+    best[q] = 0.0f;
+    am[q] = -1;
+  }
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const size_t pix = tile * tp * tp + (size_t)iy * tp + ix0;
 
-  float best = 0.0f;
-  int am = -1;
-  for (int lo = 0; lo < n_hit; lo += kSlots) {
-    const int n = min(kSlots, n_hit - lo);
-    __syncthreads();  // the previous pass is done with s_face
-    for (int i = threadIdx.x; i < kRows * n; i += kThreads) {
-      const int r = i / n;
-      const int j = i - r * n;
-      s_face[r][j] = pack[r * kf + lo + j];
+  // The valid slots are a prefix: a tile whose slot 0 is not valid is
+  // empty.
+  if (!(kf > 0 && pack[12 * kf] > 0.5f)) {  // block-uniform
+    store_px(depth, amax, pix, best, am);
+    return;
+  }
+  // Pass 0's slot of this thread; each pass loads the next pass's while it
+  // culls and scans its own.
+  int k = tid;
+  bool valid = k < kf && pack[12 * kf + k] > 0.5f;
+  float4 a = load_slot(pack, kf, k, valid);
+  float4 b = load_slot(pack, kf, k + 4 * kf, valid);
+  float4 c = load_slot(pack, kf, k + 8 * kf, valid);
+  while (true) {
+    // A pass that meets an invalid slot (or the end of the pack) is the
+    // last.
+    const bool more = __syncthreads_and(valid) != 0;
+    const int kn = k + kFwdThreads;
+    const bool load_next = more && kn < kf;
+    const bool valid_n = load_next && pack[12 * kf + kn] > 0.5f;
+    const float4 an = load_slot(pack, kf, kn, load_next);
+    const float4 bn = load_slot(pack, kf, kn + 4 * kf, load_next);
+    const float4 cn = load_slot(pack, kf, kn + 8 * kf, load_next);
+
+    // Stage the slots that can be inside somewhere in the block's region.
+    const bool keep = valid && face_may_cover(a, b, c, bx0, bx1, by0, by1);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_count[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, n_staged = 0;
+    for (int w = 0; w < kFwdWarps; ++w) {
+      const int cnt = s_count[w];
+      base += w < warp ? cnt : 0;
+      n_staged += cnt;
+    }
+    if (keep) {
+      const int j = base + __popc(ballot & lanes_below);
+      s_slot[0][j] = a;
+      s_slot[1][j] = b;
+      s_slot[2][j] = c;
+      s_id[j] = k;
     }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float e0 = s_face[0][j] * px + s_face[1][j] * py + s_face[2][j];
-      const float e1 = s_face[3][j] * px + s_face[4][j] * py + s_face[5][j];
-      const float e2 = s_face[6][j] * px + s_face[7][j] * py + s_face[8][j];
-      const float invz =
-          s_face[9][j] * px + s_face[10][j] * py + s_face[11][j];
-      const bool inside = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
-      if (inside && invz > best) {
-        best = invz;
-        am = lo + j;
+
+    // Cull: the staged slots that can be inside in this warp's sub-tile,
+    // in ascending order.
+    int n_mine = 0;
+    for (int j0 = 0; j0 < n_staged; j0 += 32) {
+      const int j = j0 + lane;
+      const bool mine =
+          j < n_staged && face_may_cover(s_slot[0][j], s_slot[1][j],
+                                         s_slot[2][j], sx0, sx1, sy0, sy1);
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) s_list[warp][n_mine + __popc(m & lanes_below)] =
+          (unsigned short)j;
+      n_mine += __popc(m);
+    }
+    __syncwarp();
+
+    // Scan the survivors for this lane's pixels.
+    for (int i = 0; i < n_mine; ++i) {
+      const int j = s_list[warp][i];
+      const float4 f0 = s_slot[0][j];
+      const float4 f1 = s_slot[1][j];
+      const float4 f2 = s_slot[2][j];
+      const int id = s_id[j];
+#pragma unroll
+      for (int q = 0; q < kPx; ++q) {
+        const float e0 = f0.x * px[q] + f0.y * py + f0.z;
+        const float e1 = f0.w * px[q] + f1.x * py + f1.y;
+        const float e2 = f1.z * px[q] + f1.w * py + f2.x;
+        const float invz = f2.y * px[q] + f2.z * py + f2.w;
+        const bool inside = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
+        if (inside && invz > best[q]) {
+          best[q] = invz;
+          am[q] = id;
+        }
       }
     }
+    if (!more) break;  // block-uniform
+    // The next pass's first barrier keeps its staging from overwriting
+    // slots this pass still reads.
+    k = kn;
+    valid = valid_n;
+    a = an;
+    b = bn;
+    c = cn;
   }
-  if (p < P) {
-    const size_t pix = tile * P + p;
-    const bool covered = best > 0.0f;
-    depth[pix] = covered ? 1.0f / fmaxf(best, 1e-9f) : 0.0f;
-    amax[pix] = covered ? am : -1;
-  }
+  store_px(depth, amax, pix, best, am);
 }
 
 __global__ void __launch_bounds__(kThreads)
 depth_bwd_partial_kernel(const float* __restrict__ depth,
                          const int* __restrict__ amax,
                          const float* __restrict__ gcot,
-                         float* __restrict__ partial, int T, int g, int tp,
-                         int kf, float inv_s) {
-  __shared__ int s_min[kWarps];
-  __shared__ int s_k;
-  __shared__ float s_warp[kWarps][3];
+                         float* __restrict__ lists, int T, int g, int tp,
+                         float inv_s) {
+  __shared__ int s_k[kWarps][32];       // a warp's distinct slots, ascending
+  __shared__ float s_v[kWarps][32][3];  // and its sums for them
+  __shared__ int s_n[kWarps];
+  __shared__ int s_count;
   const int C = gridDim.x;
   const int chunk = blockIdx.x;
   const int t = blockIdx.y;
@@ -132,87 +313,160 @@ depth_bwd_partial_kernel(const float* __restrict__ depth,
     c2 = coef;
     k_px = amax[pix];
   }
-  float* out = partial + (tile * C + chunk) * 3 * kf;
-  for (int i = threadIdx.x; i < 3 * kf; i += kThreads) out[i] = 0.0f;
+  float* out = lists + (tile * C + chunk) * kListFloats;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // Each warp walks the distinct slots of its 32 pixels in ascending order
+  // and reduces each one's contributions by a shuffle tree (lanes without
+  // the slot add 0).
   int last = -1;  // slots <= last are done; uncovered pixels hold -1
+  int n = 0;      // distinct slots of this warp so far (warp-uniform)
   while (true) {
-    // The smallest slot not yet reduced, over the block.
-    int kk = k_px > last ? k_px : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      kk = min(kk, __shfl_down_sync(0xffffffffu, kk, off));
-    }
-    if (lane == 0) s_min[warp] = kk;
-    __syncthreads();  // also orders the zero fill before the slot writes
-    if (threadIdx.x == 0) {
-      int m = INT_MAX;
-      for (int w = 0; w < kWarps; ++w) m = min(m, s_min[w]);
-      s_k = m;
-    }
-    __syncthreads();
-    const int k = s_k;
-    if (k == INT_MAX) break;  // block-uniform
+    const int k = __reduce_min_sync(0xffffffffu,
+                                    k_px > last ? k_px : INT_MAX);
+    if (k == INT_MAX) break;  // warp-uniform
     last = k;
     const bool mine = (k_px == k);
-    float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
-    if (__any_sync(0xffffffffu, mine)) {  // warp-uniform branch
-      v0 = mine ? c0 : 0.0f;
-      v1 = mine ? c1 : 0.0f;
-      v2 = mine ? c2 : 0.0f;
-      for (int off = 16; off > 0; off >>= 1) {
-        v0 += __shfl_down_sync(0xffffffffu, v0, off);
-        v1 += __shfl_down_sync(0xffffffffu, v1, off);
-        v2 += __shfl_down_sync(0xffffffffu, v2, off);
-      }
+    float v0 = mine ? c0 : 0.0f;
+    float v1 = mine ? c1 : 0.0f;
+    float v2 = mine ? c2 : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) {
+      v0 += __shfl_down_sync(0xffffffffu, v0, off);
+      v1 += __shfl_down_sync(0xffffffffu, v1, off);
+      v2 += __shfl_down_sync(0xffffffffu, v2, off);
     }
     if (lane == 0) {
-      s_warp[warp][0] = v0;
-      s_warp[warp][1] = v1;
-      s_warp[warp][2] = v2;
+      s_k[warp][n] = k;
+      s_v[warp][n][0] = v0;
+      s_v[warp][n][1] = v1;
+      s_v[warp][n][2] = v2;
     }
-    __syncthreads();
-    if (threadIdx.x < 3) {
-      float acc = 0.0f;
-      for (int w = 0; w < kWarps; ++w) acc += s_warp[w][threadIdx.x];
-      out[threadIdx.x * kf + k] = acc;
-    }
-    // The next step's first barrier keeps s_warp and s_k from being
-    // overwritten before they are read.
+    ++n;
   }
+  if (lane == 0) s_n[warp] = n;
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+
+  // The chunk's sum of slot k is 0 + (warp sums in warp order); the first
+  // warp that holds k writes it. Lists are sorted, so a warp finds k by
+  // binary search.
+  auto find = [&](int w, int k) {
+    int lo = 0, hi = s_n[w];
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_k[w][mid] < k) lo = mid + 1; else hi = mid;
+    }
+    return lo < s_n[w] && s_k[w][lo] == k ? lo : -1;
+  };
+  if (lane < n) {
+    const int k = s_k[warp][lane];
+    bool first = true;
+    for (int w = 0; w < warp && first; ++w) first = find(w, k) < 0;
+    if (first) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      for (int w = warp; w < kWarps; ++w) {
+        const int j = w == warp ? lane : find(w, k);
+        if (j >= 0) {
+          a0 += s_v[w][j][0];
+          a1 += s_v[w][j][1];
+          a2 += s_v[w][j][2];
+        }
+      }
+      const int pos = atomicAdd(&s_count, 1);  // list order is free
+      *reinterpret_cast<float4*>(out + 4 + 4 * pos) =
+          make_float4(__int_as_float(k), a0, a1, a2);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) reinterpret_cast<int*>(out)[0] = s_count;
 }
 
-__global__ void depth_bwd_finalize_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ gpack, int C,
-                                          int kf, size_t n_out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const size_t tile = i / (16 * (size_t)kf);
-  const int row = (int)((i / kf) % 16);
-  const int k = (int)(i % kf);
-  float acc = 0.0f;
-  if (row >= 9 && row < 12) {
-    const float* src = partial + (tile * C * 3 + (row - 9)) * kf + k;
-    for (int c = 0; c < C; ++c) acc += src[(size_t)c * 3 * kf];
+__global__ void __launch_bounds__(kThreads)
+depth_bwd_finalize_kernel(const float* __restrict__ lists,
+                          float* __restrict__ gpack, int C, int kf) {
+  __shared__ float s_acc[3][kWindow];
+  const size_t tile = blockIdx.x;
+  const float* tile_lists = lists + tile * C * kListFloats;
+  float* out = gpack + tile * 16 * kf;
+  for (int lo = 0; lo < kf; lo += kWindow) {
+    const int n = min(kWindow, kf - lo);
+    // Rows 0-8 and 12-15 first: their stores overlap the lists' loads.
+    for (int r = 0; r < 16; ++r) {
+      if (r >= 9 && r < 12) continue;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        out[(size_t)r * kf + lo + i] = 0.0f;
+      }
+    }
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      s_acc[0][i] = 0.0f;
+      s_acc[1][i] = 0.0f;
+      s_acc[2][i] = 0.0f;
+    }
+    __syncthreads();
+    // Chunk order. A list holds at most kThreads entries, so thread i adds
+    // entry i; the counts and entries of kGroup chunks load together.
+    for (int c0 = 0; c0 < C; c0 += kGroup) {
+      int cnt[kGroup];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        cnt[q] = c0 + q < C ? reinterpret_cast<const int*>(
+                                  tile_lists + (size_t)(c0 + q) *
+                                                   kListFloats)[0]
+                            : 0;
+      }
+      float4 e[kGroup];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        e[q] = threadIdx.x < cnt[q]
+                   ? reinterpret_cast<const float4*>(
+                         tile_lists + (size_t)(c0 + q) * kListFloats +
+                         4)[threadIdx.x]
+                   : make_float4(__int_as_float(-1), 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        const int k = __float_as_int(e[q].x) - lo;
+        if (k >= 0 && k < n) {
+          s_acc[0][k] += e[q].y;
+          s_acc[1][k] += e[q].z;
+          s_acc[2][k] += e[q].w;
+        }
+        __syncthreads();  // the next chunk may add to the same slots
+      }
+    }
+    for (int r = 0; r < 3; ++r) {
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        out[(size_t)(9 + r) * kf + lo + i] = s_acc[r][i];
+      }
+    }
+    __syncthreads();  // the next window clears s_acc
   }
-  gpack[i] = acc;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Each entry point launches on `stream`
 // and returns cudaGetLastError() (0 = launched).
+//
+// depth_fwd takes tp a multiple of 16 (render/depth.py raises on others;
+// here they return cudaErrorInvalidValue); kf slots per tile, valid slots
+// a prefix.
 extern "C" int depth_fwd(const float* face_pack, float* depth, int* amax,
                          int B, int T, int g, int tp, int kf, float inv_s,
                          void* stream) {
-  const dim3 grid((tp * tp + kThreads - 1) / kThreads, T, B);
+  if (tp <= 0 || tp % kRegion != 0) return (int)cudaErrorInvalidValue;
+  const int per_row = tp / kRegion;
+  const dim3 grid(per_row * per_row, T, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  depth_fwd_kernel<<<grid, kThreads, 0, s>>>(face_pack, depth, amax, T, g,
-                                             tp, kf, inv_s);
+  depth_fwd_kernel<<<grid, kFwdThreads, 0, s>>>(face_pack, depth, amax, T,
+                                                g, tp, kf, inv_s);
   return (int)cudaGetLastError();
 }
 
+// depth_bwd: `partial` is scratch of at least B * T * n_chunks *
+// (4 + 4 * 256) floats (the chunks' compact lists), n_chunks =
+// ceil(tp^2 / 256).
 extern "C" int depth_bwd(const float* depth, const int* amax,
                          const float* gcot, float* partial, float* gpack,
                          int B, int T, int g, int tp, int kf, int n_chunks,
@@ -220,13 +474,11 @@ extern "C" int depth_bwd(const float* depth, const int* amax,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_chunks, T, B);
   depth_bwd_partial_kernel<<<grid, kThreads, 0, s>>>(depth, amax, gcot,
-                                                     partial, T, g, tp, kf,
+                                                     partial, T, g, tp,
                                                      inv_s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t n_out = (size_t)B * T * 16 * kf;
-  const unsigned blocks = (unsigned)((n_out + kThreads - 1) / kThreads);
-  depth_bwd_finalize_kernel<<<blocks, kThreads, 0, s>>>(partial, gpack,
-                                                        n_chunks, kf, n_out);
+  depth_bwd_finalize_kernel<<<(unsigned)(B * T), kThreads, 0, s>>>(
+      partial, gpack, n_chunks, kf);
   return (int)cudaGetLastError();
 }

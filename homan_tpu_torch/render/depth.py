@@ -20,6 +20,11 @@ sign-folded edge lines and its inverse-depth plane:
             whose amax is k; every other row is 0. The inside test gets no
             gradient (envelope), as a CUDA z-buffer's depth backward.
 
+The forward kernel scans, for each 8 x 8 sub-tile, only the slots that an
+exact cull keeps: a slot is dropped where some edge is negative at every
+pixel centre of the sub-tile as the kernel rounds it (`cull_keep` replays
+the test, `fwd_work` counts the work it leaves); the outputs do not change.
+
 Dispatch is by device: a CPU tensor runs the plain PyTorch version below, a
 CUDA tensor launches the kernel (or raises). `depth_fwd_launches` and
 `depth_bwd_launches` count kernel launches only.
@@ -37,12 +42,27 @@ from homan_tpu_torch.render.shade import _check, _pixel_coords, _require_cuda
 depth_fwd_launches = 0
 depth_bwd_launches = 0
 
-# Pixels per CUDA block; also the backward's partial-sum chunk.
+# Pixels per chunk of the backward, whose per-chunk sums are added in
+# chunk order (csrc/depth.cu kThreads).
 BLOCK_PIXELS = 256
-# Per pixel and valid slot, the forward kernel's fp32 arithmetic and
+# Floats of one chunk's compact list in the backward's scratch: the count,
+# padded to 4, then (slot, v0, v1, v2) per distinct slot (kListFloats).
+BWD_LIST_FLOATS = 4 + 4 * BLOCK_PIXELS
+# The forward's geometry (csrc/depth.cu kSub, kRegion): a block owns a
+# FWD_REGION x FWD_REGION region of a tile, a warp an FWD_SUB x FWD_SUB
+# sub-tile of it. The kernel takes tiles of a multiple of FWD_REGION
+# pixels.
+FWD_SUB = 8
+FWD_REGION = 16
+# Per evaluated (pixel, slot), the forward kernel's fp32 arithmetic and
 # compares: four linear forms of 2 products and 2 sums each (16), three
 # `>= 0` tests and the `> best` test (4), two selects (csrc/depth.cu).
 FWD_OPS_PER_PIXEL_SLOT = 22
+# Per (box, slot) cull test, for each of the three edges: a px and b py at
+# the box's two x and two y corners (4 products), the four corner values
+# (8 sums), their maximum (3), the slack |a| + |b| + |c| times 2^-20 (3),
+# its sum with the maximum and the compare (2); and the two ands.
+FWD_CULL_OPS_PER_BOX_SLOT = 3 * 20 + 2
 # Per pixel, the backward's coef = -gcot*depth*depth (3), its select, and
 # coef*px, coef*py (2).
 BWD_OPS_PER_PIXEL = 6
@@ -58,6 +78,19 @@ class DepthStatic(NamedTuple):
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU path, and the kernels' yardstick on the card)
 # ---------------------------------------------------------------------------
+def _slot_inside(fp, k, px, py):
+    """Slot k of the (B, T, 16, kf, 1, 1) pack at every pixel: inside (all
+    three edges >= 0 and the slot valid) and invz, (B, T, tp, tp)."""
+    a0, b0, c0, a1, b1, c1, a2, b2, c2, az, bz, cz, valid = (
+        fp[:, :, r, k] for r in range(13))
+    e0 = a0 * px + b0 * py + c0
+    e1 = a1 * px + b1 * py + c1
+    e2 = a2 * px + b2 * py + c2
+    invz = az * px + bz * py + cz
+    inside = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (valid > 0.0)
+    return inside, invz
+
+
 def depth_fwd_plain(face_pack, static: DepthStatic):
     """Sequential scan over the slots; every temporary is (B, T, tp, tp).
     Returns depth (B, T, tp, tp) float32 and amax (B, T, tp, tp) int32."""
@@ -70,13 +103,7 @@ def depth_fwd_plain(face_pack, static: DepthStatic):
     n_max = int(face_pack[:, :, 12].sum(-1).max()) if B * T else 0
     fp = face_pack[..., None, None]  # (B, T, 16, kf, 1, 1)
     for k in range(min(n_max, static.kf)):
-        a0, b0, c0, a1, b1, c1, a2, b2, c2, az, bz, cz, valid = (
-            fp[:, :, r, k] for r in range(13))
-        e0 = a0 * px + b0 * py + c0
-        e1 = a1 * px + b1 * py + c1
-        e2 = a2 * px + b2 * py + c2
-        invz = az * px + bz * py + cz
-        inside = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (valid > 0.0)
+        inside, invz = _slot_inside(fp, k, px, py)
         better = inside & (invz > best)
         best = torch.where(better, invz, best)
         am = torch.where(better, torch.full_like(am, k), am)
@@ -85,6 +112,71 @@ def depth_fwd_plain(face_pack, static: DepthStatic):
                         torch.zeros((), device=dev))
     amax = torch.where(covered, am, torch.full_like(am, -1))
     return depth, amax
+
+
+def _check_tile(tp):
+    if tp <= 0 or tp % FWD_REGION:
+        raise ValueError(f"the depth kernel takes tiles of a multiple of "
+                         f"{FWD_REGION} pixels, got {tp}")
+
+
+def _box_keep(face_pack, static: DepthStatic, side: int):
+    """(B, T, n, n, kf) bool, n = tp / side: the kernel's cull test of each
+    slot against each side x side box of pixel centres, in its float32
+    expressions: no edge's rounded maximum over the box's four corner
+    centres, plus the slack (|a| + |b| + |c|) 2^-20, is negative."""
+    T = face_pack.shape[1]
+    px, py, _ = _pixel_coords(static, T, face_pack.device)
+    x0 = px[:, :, 0, 0::side][:, :, None, :, None]  # (1, T, 1, n, 1)
+    x1 = px[:, :, 0, side - 1::side][:, :, None, :, None]
+    y0 = py[:, :, 0::side, 0][:, :, :, None, None]  # (1, T, n, 1, 1)
+    y1 = py[:, :, side - 1::side, 0][:, :, :, None, None]
+    keep = None
+    for i in range(3):
+        a, b, c = (face_pack[:, :, 3 * i + j][:, :, None, None, :]
+                   for j in range(3))
+        m = torch.maximum(
+            torch.maximum(a * x0 + b * y0 + c, a * x1 + b * y0 + c),
+            torch.maximum(a * x0 + b * y1 + c, a * x1 + b * y1 + c))
+        slack = (a.abs() + b.abs() + c.abs()) * 2.0 ** -20
+        ok = m + slack >= 0.0
+        keep = ok if keep is None else keep & ok
+    return keep
+
+
+def cull_keep(face_pack, static: DepthStatic):
+    """(B, T, tp/FWD_SUB, tp/FWD_SUB, kf) bool: the valid slots the forward
+    kernel scans for each warp's sub-tile (its block's region test, then
+    the sub-tile's), and (B, T, tp/FWD_REGION, tp/FWD_REGION, kf) the
+    region test's survivors among the valid slots."""
+    _check_tile(static.tile_px)
+    valid = (face_pack[:, :, 12] > 0.5)[:, :, None, None, :]
+    in_region = _box_keep(face_pack, static, FWD_REGION) & valid
+    r = FWD_REGION // FWD_SUB
+    keep = (_box_keep(face_pack, static, FWD_SUB)
+            & in_region.repeat_interleave(r, 2).repeat_interleave(r, 3))
+    return keep, in_region
+
+
+def fwd_work(face_pack, static: DepthStatic) -> dict:
+    """What the forward kernel works on these inputs, counted by replaying
+    its cull (`cull_keep`): (region, valid slot) cull tests, (sub-tile,
+    slot kept by its region) cull tests, (pixel, slot kept by its sub-tile)
+    evaluations, and the (pixel, valid slot) pairs a dense scan evaluates."""
+    tp = static.tile_px
+    keep, in_region = cull_keep(face_pack, static)
+    n_valid = int((face_pack[:, :, 12] > 0.5).sum())
+    return {"region_tests": n_valid * (tp // FWD_REGION) ** 2,
+            "sub_tests": int(in_region.sum()) * (FWD_REGION // FWD_SUB) ** 2,
+            "pixel_slots": int(keep.sum()) * FWD_SUB ** 2,
+            "valid_pixel_slots": n_valid * tp * tp}
+
+
+def fwd_work_ops(work: dict) -> int:
+    """The forward kernel's operations for the counts of `fwd_work`."""
+    return (FWD_CULL_OPS_PER_BOX_SLOT * (work["region_tests"]
+                                         + work["sub_tests"])
+            + FWD_OPS_PER_PIXEL_SLOT * work["pixel_slots"])
 
 
 def depth_bwd_plain(depth, amax, gcot, static: DepthStatic):
@@ -135,6 +227,7 @@ def depth_fwd(face_pack, static: DepthStatic):
     tp, kf = static.tile_px, static.kf
     dev = face_pack.device
     _check("face_pack", face_pack, (B, T, 16, kf), torch.float32, dev)
+    _check_tile(tp)
     depth = torch.empty((B, T, tp, tp), dtype=torch.float32, device=dev)
     amax = torch.empty((B, T, tp, tp), dtype=torch.int32, device=dev)
     if B * T == 0:
@@ -165,17 +258,18 @@ def depth_bwd(depth, amax, gcot, static: DepthStatic):
     _check("depth", depth, px_shape, torch.float32, dev)
     _check("amax", amax, px_shape, torch.int32, dev)
     _check("gcot", gcot, px_shape, torch.float32, dev)
-    n_chunks = -(-tp * tp // BLOCK_PIXELS)
     gpack = torch.empty((B, T, 16, kf), dtype=torch.float32, device=dev)
     if B * T == 0:
         return gpack
-    partial = torch.empty((B, T, n_chunks, 3, kf), dtype=torch.float32,
-                          device=dev)
+    n_chunks = -(-tp * tp // BLOCK_PIXELS)
+    # Each chunk's compact list; only its count and entries are written.
+    lists = torch.empty(B * T * n_chunks * BWD_LIST_FLOATS,
+                        dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.depth_bwd(depth.data_ptr(), amax.data_ptr(),
-                           gcot.data_ptr(), partial.data_ptr(),
+                           gcot.data_ptr(), lists.data_ptr(),
                            gpack.data_ptr(), B, T, static.g, tp, kf,
                            n_chunks, 1.0 / static.image_size, stream)
     if rc != 0:

@@ -27,9 +27,9 @@ from homan_tpu_torch.fit import losses as TL
 from homan_tpu_torch.render import depth as tdepth
 from homan_tpu_torch.render import rasterizer as tr
 
-from torch_port_common import (assert_grad_close, depth_scene_pair,
-                               overlap_state, port_from_jax, raster_mesh,
-                               settings_pair, t2n, to_numpy)
+from torch_port_common import (adversarial_depth_pack, assert_grad_close,
+                               depth_scene_pair, overlap_state, port_from_jax,
+                               raster_mesh, settings_pair, t2n, to_numpy)
 
 # (mesh, image size, tile, faces per tile): a Kf that overflows the
 # per-tile demand and one that holds every face, for each mesh.
@@ -38,6 +38,9 @@ DEPTH_CASES = [("object", 64, 16, 32), ("object", 64, 16, 1024),
 
 
 def _ids(c):
+    if c[0] == "adversarial":
+        lead = f"-lead{c[4]}" if len(c) > 4 else ""
+        return f"{c[0]}-{c[1]}-{c[2]}-seed{c[3]}{lead}"
     return f"{c[0]}-{c[1]}-{c[2]}-kf{c[3]}"
 
 
@@ -162,6 +165,96 @@ def test_depth_plain_matches_pallas_interpret(case):
         assert_grad_close(tg, jg, name="gpack")
     else:
         assert not jg.any() and not tg.any()
+
+
+# The kernel's cull (replayed on the host by depth.cull_keep) on the JAX
+# prep's packs above and on hand-built adversarial packs at tiles 16, 32
+# and 48 (tests/torch_port_common.py adversarial_depth_pack: axis-aligned
+# edges through pixel centres, slivers, faces touching a sub-tile only at a
+# corner centre, equal-invz ties; the last case puts 2,000 faces that are
+# inside nowhere first, so the winners sit past slot 2,048).
+CULL_CASES = DEPTH_CASES + [("adversarial", 32, 16, 0),
+                            ("adversarial", 64, 32, 1),
+                            ("adversarial", 96, 48, 3),
+                            ("adversarial", 32, 16, 2, 2000)]
+
+
+def _cull_pack(case):
+    if case[0] == "adversarial":
+        return adversarial_depth_pack(tp=case[2], seed=case[3],
+                                      lead=case[4] if len(case) > 4 else 0)
+    jpack, jstatic = _jax_pack(case)
+    return torch.from_numpy(jpack), tdepth.DepthStatic(*jstatic)
+
+
+@pytest.mark.parametrize("case", CULL_CASES, ids=_ids)
+def test_depth_cull_is_conservative(case):
+    """Every (pixel, slot) the plain forward finds inside with invz > 0
+    survives its sub-tile's cull, so the culled scan (the kernel's order of
+    work) gives bit-identical depth and amax; and the cull drops work."""
+    pack, static = _cull_pack(case)
+    keep, in_region = tdepth.cull_keep(pack, static)
+    B, T = pack.shape[:2]
+    n = static.tile_px // tdepth.FWD_SUB
+    assert keep.shape == (B, T, n, n, static.kf)
+    px, py, _ = tdepth._pixel_coords(static, T, pack.device)
+    fp = pack[..., None, None]
+    sub = tdepth.FWD_SUB
+    n_inside = 0
+    best = torch.zeros((B, T, static.tile_px, static.tile_px))
+    am = torch.full(best.shape, -1, dtype=torch.int32)
+    for k in range(int(pack[:, :, 12].sum(-1).max())):
+        inside, invz = tdepth._slot_inside(fp, k, px, py)
+        hit = inside & (invz > 0)
+        n_inside += int(hit.sum())
+        kept = keep[..., k].repeat_interleave(sub, 2).repeat_interleave(
+            sub, 3)
+        assert not bool((hit & ~kept).any()), (
+            f"slot {k}: culled where it is inside")
+        # The kernel's scan: each pixel sees only its sub-tile's survivors.
+        better = inside & kept & (invz > best)
+        best = torch.where(better, invz, best)
+        am = torch.where(better, torch.full_like(am, k), am)
+    assert n_inside > 0
+    depth, amax = tdepth.depth_fwd_plain(pack, static)
+    assert torch.equal(best > 0, depth > 0)
+    assert torch.equal(torch.where(best > 0, 1.0 / best.clamp(min=1e-9), 0.0),
+                       depth)
+    assert torch.equal(torch.where(best > 0, am, -1), amax)
+    work = tdepth.fwd_work(pack, static)
+    assert n_inside <= work["pixel_slots"] < work["valid_pixel_slots"]
+
+
+@pytest.mark.parametrize("tp", (16, 32, 48, 64, 96, 128))
+def test_depth_fwd_work_of_a_face_covering_the_tile_is_dense(tp):
+    """Faces that cover the whole tile survive every cull: the work counts
+    every (pixel, valid slot) pair, as the dense count does."""
+    n_faces, kf = 3, 5
+    static = tdepth.DepthStatic(tp, 2 * tp, 2, kf)
+    pack = torch.zeros((1, 4, 16, kf))
+    # e0 = px + 1, e1 = py + 1, e2 = 3 - px - py: positive on [0, 1]^2.
+    face = torch.tensor([1.0, 0.0, 1.0, 0.0, 1.0, 1.0, -1.0, -1.0, 3.0,
+                         0.0, 0.0, 1.0, 1.0])
+    pack[:, :, :13, :n_faces] = face[:, None]
+    work = tdepth.fwd_work(pack, static)
+    n_valid = 4 * n_faces
+    assert work == {"region_tests": n_valid * (tp // tdepth.FWD_REGION) ** 2,
+                    "sub_tests": n_valid * (tp // tdepth.FWD_SUB) ** 2,
+                    "pixel_slots": n_valid * tp * tp,
+                    "valid_pixel_slots": n_valid * tp * tp}
+    assert tdepth.fwd_work_ops(work) == (
+        tdepth.FWD_CULL_OPS_PER_BOX_SLOT * (work["region_tests"]
+                                            + work["sub_tests"])
+        + tdepth.FWD_OPS_PER_PIXEL_SLOT * n_valid * tp * tp)
+    depth, amax = tdepth.depth_fwd_plain(pack, static)
+    assert bool((depth == 1.0).all()) and bool((amax == 0).all())
+
+
+def test_depth_cull_refuses_tiles_the_kernel_does_not_take():
+    for tp in (8, 24, 40):
+        static = tdepth.DepthStatic(tp, 2 * tp, 2, 4)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tdepth.cull_keep(torch.zeros((1, 4, 16, 4)), static)
 
 
 def _xla_settings(case):

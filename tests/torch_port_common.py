@@ -157,3 +157,99 @@ def overlap_state(js):
     hand_nb = js.cfg.hand_nb
     t = gt.translations_hand[::hand_nb] + jnp.asarray([0.03, 0.0, -0.06])
     return dataclasses.replace(gt, translations_object=t)
+
+
+def adversarial_depth_pack(tp=16, g=2, b=2, seed=0, lead=0):
+    """A face pack (b, g*g, 16, kf) for the depth kernel's cull, built by
+    hand in image coordinates (every tile holds every face, all valid):
+
+    - right triangles whose two legs are axis-aligned edges through pixel
+      centres on a sub-tile's boundary, so they touch a sub-tile only at
+      one corner centre (e = 0 there, exactly);
+    - slivers: two vertices on pixel centres and a third a hair off their
+      line, so the inside band holds pixel centres only as rounding allows;
+    - triangles with every vertex on a pixel centre;
+    - one face with all-zero edge lines (inside everywhere, as a degenerate
+      face of the prep is);
+    - equal-invz ties: some faces repeated at a later slot, and some faces
+      sharing one constant invz;
+    - with `lead` > 0, that many faces inside nowhere (e0 = -1) before all
+      the others, so the faces that win sit at slots from `lead` on.
+
+    Returns (face_pack, DepthStatic)."""
+    from homan_tpu_torch.render.depth import DepthStatic
+    S = tp * g
+    f32 = np.float32
+    inv_s = f32(1.0 / S)
+
+    def centre(i):  # pixel centre i in image coordinates, as the kernel
+        return (f32(i) + f32(0.5)) * inv_s
+
+    def line(a, b):  # the prep's edge line through a and b
+        A = -(b[1] - a[1])
+        B = b[0] - a[0]
+        C = (b[1] - a[1]) * a[0] - (b[0] - a[0]) * a[1]
+        return [A, B, C]
+
+    def triangle(p0, p1, p2, rng):
+        p0, p1, p2 = (np.asarray(p, f32) for p in (p0, p1, p2))
+        area = f32((p1[0] - p0[0]) * (p2[1] - p0[1])
+                   - (p2[0] - p0[0]) * (p1[1] - p0[1]))
+        if area == 0:
+            return None  # degenerate: drawn again
+        sgn = f32(np.sign(area))
+        rows = []
+        for a, c in ((p1, p2), (p2, p0), (p0, p1)):
+            rows += [f32(x) * sgn for x in line(a, c)]
+        return rows + invz(rng)
+
+    def invz(rng):
+        return [f32(rng.uniform(-0.2, 0.2)), f32(rng.uniform(-0.2, 0.2)),
+                f32(rng.uniform(0.8, 1.2))]
+
+    packs = []
+    for bi in range(b):
+        rng = np.random.RandomState(seed * 1000 + bi)
+        faces = []
+        bounds = [i for m in range(1, S // 8) for i in (8 * m - 1, 8 * m)]
+        for _ in range(48):  # corner-touching right triangles
+            X, Y = centre(rng.choice(bounds)), centre(rng.choice(bounds))
+            sx, sy = f32(rng.choice([-1, 1])), f32(rng.choice([-1, 1]))
+            w = f32(rng.randint(1, 6)) * inv_s
+            faces.append([sx, f32(0), -sx * X, f32(0), sy, -sy * Y,
+                          -sx, -sy, sx * X + sy * Y + w] + invz(rng))
+        while len(faces) < 144:  # slivers, a fraction of a pixel wide
+            i0, j0 = rng.randint(0, S, 2)
+            i1, j1 = np.clip([i0, j0] + rng.randint(-6, 7, 2), 0, S - 1)
+            p0 = (centre(i0), centre(j0))
+            p1 = (centre(i1), centre(j1))
+            off = f32(rng.choice([1e-3, 0.05, 0.3])) * inv_s
+            p2 = (p1[0] + off, p1[1] - off) if rng.rand() < 0.5 else (
+                (p0[0] + p1[0]) / f32(2) + off, (p0[1] + p1[1]) / f32(2))
+            face = triangle(p0, p1, p2, rng)
+            if face is not None:
+                faces.append(face)
+        while len(faces) < 240:  # triangles on pixel centres
+            i, j = rng.randint(0, S, 2)
+            pts = [(centre(i), centre(j))] + [
+                (centre(np.clip(i + di, 0, S - 1)),
+                 centre(np.clip(j + dj, 0, S - 1)))
+                for di, dj in rng.randint(-9, 10, (2, 2))]
+            face = triangle(*pts, rng)
+            if face is not None:
+                faces.append(face)
+        faces.append([f32(0)] * 9 + [f32(0), f32(0), f32(0.05)])
+        tie = [f32(0), f32(0), f32(1.5)]
+        for idx in rng.choice(len(faces) - 1, 12, replace=False):
+            faces[idx][9:12] = tie  # one constant invz shared by several
+        for idx in rng.choice(len(faces), 40, replace=False):
+            faces.append(list(faces[idx]))  # repeated at a later slot
+        nowhere = [f32(0), f32(0), f32(-1)] + [f32(0)] * 6 + invz(rng)
+        packs.append(np.asarray([nowhere] * lead + faces, f32))
+    kf = len(packs[0])
+    T = g * g
+    out = np.zeros((b, T, 16, kf), f32)
+    for bi, faces in enumerate(packs):
+        out[bi, :, :12] = faces.T[None]
+        out[bi, :, 12] = 1.0
+    return torch.from_numpy(out), DepthStatic(tp, S, g, kf)
