@@ -4,15 +4,19 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab voxelize=OTHER.cu --ab shade_fwd=OTHER.cu \
-        --ab depth=OTHER.cu
+        --ab shade_bwd=OTHER.cu --ab depth=OTHER.cu
 
 Phases, each fatal on failure:
   1. set-up: card, power limit, versions; TF32 off; build every CUDA kernel
      from the package's csrc/ directories (nvcc, sm_90a, one process per
      source, all at once), printing ptxas' registers and spills.
   2. kernels vs plain versions on the card, at the shapes the paths give
-     them, with CUDA-event medians of each (runs of 10 launches back to
-     back, so the wrapper's host work overlaps the device's):
+     them, each timed two ways: `ms`, the CUDA-event median of runs of 10
+     calls of the wrapper back to back (the wrapper's host work overlaps
+     the device's, and a kernel shorter than that work reads the host's
+     rate), and `device_ms`, the call's time on the device alone with a
+     cold L2: CUDA events around each of 30 calls, each queued behind an
+     L2 flush and a spin so the host is ahead, the median (see device_ms):
      - the shade pair on the packs the port's prep builds at the headline
        fit's shape (30 frames, 256^2, tile 128; Ke 48 and the Ke the fit
        runs, sized from the measured contour-edge demand as the JAX
@@ -20,7 +24,18 @@ Phases, each fatal on failure:
        (tile 16): bit-equality with the plain forward, the bands (sil
        2e-5, argmin >= 0.999, ties 1e-7, residuals 1e-6), forward-only
        mode, gradients; the bound counts the work the kernel does on
-       these inputs (shade.fwd_work);
+       these inputs (shade.fwd_work); the backward also on adversarial
+       residuals from a numpy seed (no pixel, one slot, pixel index mod
+       Ke, only slot Ke - 1; Ke 48 to 3000, tiles 24 to 200), within 3e-3
+       of the plain version's maximum and deterministic; its scratch
+       bytes, read from the list counts its kernel wrote; its library
+       yardsticks, never called by the port: the contributions (the plain
+       elementwise pass), then one `index_add_` of the picked pixels'
+       contributions (selected before the timed call) into (B T Ke, 4)
+       buckets keyed by the argmin slot (float atomics: not
+       deterministic), and one `torch.einsum` of a one-hot (P, Ke)
+       selection against the (P, 4) contributions per tile (the JAX
+       package's formulation, cuBLAS);
      - the depth pair on the object's and the hand's face packs at the
        depth fit's shape (10 frames, 512^2, tile 64) at the face budget
        sized from the measured demand and at the default 256: depth and
@@ -28,6 +43,8 @@ Phases, each fatal on failure:
        deterministic, zero outside rows 9-11; the bound counts the work
        the kernel's exact cull leaves (depth.fwd_work), the dense count
        beside it, and the evaluated share of the (pixel, valid slot) pairs;
+       the backward's library yardstick, one `index_add_` of the covered
+       pixels' contributions, as for the shade backward;
      - the voxelizer on the interaction fit's hand and object at G 16, 32
        and 64: within 1e-5, inside sets identical, deterministic; the
        inside share, the bound of the work these inputs need (crossing
@@ -36,8 +53,12 @@ Phases, each fatal on failure:
      --ab NAME=PATH builds another source of a kernel with the same C
      interface (the parent commit's, a design variant), checks its output
      against the package's (depth: depth, amax and gpack bit-equal, on the
-     depth fit's object and hand packs) and times the two in turns
-     (package, other, other, package), then stops before phase 3.
+     depth fit's object and hand packs; shade_bwd: gseg within 3e-3 of the
+     plain version's maximum, on the headline fit's pack and the hand's
+     evidence pack, the variant given the scratch its layout needs) and
+     times the two in turns (package, other, other, package), by `ms` and
+     by `device_ms`, with each call's kernels split by one torch.profiler
+     window, then stops before phase 3.
   3. the paths, each run twice with every launch count set to 0 just
      before a run and read just after; losses finite and falling, no
      edge-budget overflow, a 10-step torch.profiler window each:
@@ -126,6 +147,81 @@ def time_ms(torch, fn, reps=25, warmup=3, inner=10):
     return statistics.median(times)
 
 
+_L2_FLUSH = []  # a buffer larger than the card's 50 MB L2
+
+
+def flush_l2(torch):
+    """Overwrite the L2 cache (one `bitwise_not_` kernel over 128 MB)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.zeros(128 << 20, dtype=torch.uint8,
+                                     device="cuda"))
+    _L2_FLUSH[0].bitwise_not_()
+
+
+# Calls per device_ms, and the spin (GPU clock cycles, ~1 ms) that holds
+# the stream after each flush, so the host has queued the whole call
+# before the device reaches it.
+DEVICE_CALLS, SPIN_CYCLES = 30, 2_000_000
+
+
+def device_ms(torch, fn):
+    """Device time of one call of fn with a cold L2 (flush_l2 before each
+    call: inputs under 50 MB otherwise stay in L2 between calls back to
+    back): CUDA events recorded just before and just after each call, the
+    flush and a spin queued ahead of them; the median over DEVICE_CALLS
+    calls. fn must not wait for the device (kernels_ms times one that
+    does)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(DEVICE_CALLS):
+        flush_l2(torch)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def kernels_ms(torch, fn):
+    """The summed durations of fn's kernels (kernel_split_us), for a call
+    that blocks the host (the plain shade contributions copy sigma to the
+    card), where device_ms's events would also time the host's launches."""
+    return sum(us * n for us, n in kernel_split_us(torch, fn).values()) / 1e3
+
+
+def kernel_split_us(torch, fn):
+    """{kernel name: (median us, runs per call)} of one call of fn, L2
+    overwritten before each of DEVICE_CALLS calls, from one torch.profiler
+    window (the profiler drops records at times: runs per call are
+    rounded, and the median of the durations it kept stands)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+    cuda_t = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DEVICE_CALLS):
+            flush_l2(torch)
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(list)
+    for e in prof.events():
+        if (e.device_type == cuda_t and "bitwise_not" not in e.name
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name].append(e.time_range.elapsed_us())
+    return {name[:60]: (statistics.median(us),
+                        max(1, round(len(us) / DEVICE_CALLS)))
+            for name, us in by_name.items()}
+
+
 def bounds(seg_pack, anchors, static):
     """Least times (ms) of the forward and backward on these inputs.
 
@@ -133,8 +229,11 @@ def bounds(seg_pack, anchors, static):
     operations = the kernel's work on these inputs, replayed by
     shade.fwd_work (records per (row, VALID slot), pass 1 per (pixel,
     VALID slot), skip tests per (pixel group, VALID slot), pass 2 where a
-    group does not skip its slot). Backward: bytes = five residuals and the
-    cotangent read, gseg written; operations per pixel.
+    group does not skip its slot). Backward: bytes = amin of every pixel
+    and the other four residuals and the cotangent of the pixels that
+    picked a slot (only they reach gseg) read, gseg written; operations
+    per picked pixel. Its dense count beside it: all six arrays of every
+    pixel read (the first design's bound).
     """
     from homan_tpu_torch.render import shade
     B, T = seg_pack.shape[:2]
@@ -145,10 +244,12 @@ def bounds(seg_pack, anchors, static):
     evaluated = work["evaluated_group_slots"] / work["group_slots"]
     fwd_bytes = seg_bytes + px * 4 + px * 20
     fwd_ops = shade.fwd_work_ops(work)
-    bwd_bytes = px * 24 + seg_bytes
-    bwd_ops = shade.BWD_OPS_PER_PIXEL * px
-    return (_bound(fwd_bytes, fwd_ops), _bound(bwd_bytes, bwd_ops), share,
-            evaluated)
+    picked = int((shade.shade_fwd(seg_pack, anchors, static)[1] >= 0).sum())
+    bwd = _bound(px * 4 + picked * 20 + seg_bytes,
+                 shade.BWD_OPS_PER_PIXEL * picked)
+    bwd_dense = _bound(px * 24 + seg_bytes, shade.BWD_OPS_PER_PIXEL * px)
+    return (_bound(fwd_bytes, fwd_ops), bwd, share, evaluated, bwd_dense,
+            picked / px)
 
 
 def _bound(n_bytes, n_ops):
@@ -156,6 +257,163 @@ def _bound(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
+
+
+def shade_bwd_library(torch, res, gcot, static, g_p):
+    """The shade backward's library yardsticks on these residuals, each
+    checked against the plain version's gseg (3e-3 of its maximum) and
+    timed by device_ms: the contributions (the plain elementwise pass, by
+    kernels_ms), then one `index_add_` of the picked pixels' contributions into (B T Ke,
+    4) buckets keyed by the argmin slot (float atomics: not deterministic;
+    the picked pixels are selected outside the timed call, so no bucket of
+    unpicked pixels serialises it), and one `torch.einsum` of a one-hot
+    (P, Ke) selection against all contributions per tile (cuBLAS; the JAX
+    package's own formulation)."""
+    from homan_tpu_torch.render import shade
+    sil, amin, rx, ry, tc = res
+    B, T, ke, P = sil.shape[0], sil.shape[1], static.ke, sil[0, 0].numel()
+    dev = sil.device
+
+    def contrib():
+        return shade._bwd_contrib(sil, rx, ry, tc, gcot, static.sigma)
+
+    c = contrib().reshape(B * T, P, 4)
+    am = amin.reshape(B * T, P).long()
+    picked = am >= 0
+    index = (torch.arange(B * T, device=dev)[:, None] * ke + am)[picked]
+    flat = c[picked]
+    acc = torch.zeros((B * T * ke, 4), device=dev)
+    acc.index_add_(0, index, flat)
+    onehot = (amin.reshape(B * T, P, 1)
+              == torch.arange(ke, device=dev)).float()
+    g_es = torch.einsum("npk,npc->nkc", onehot, c)
+    scale = float(g_p.abs().max())
+    for label, g in (("index_add_", acc.reshape(B, T, ke, 4)),
+                     ("einsum", g_es.reshape(B, T, ke, 4))):
+        err = float((g.permute(0, 1, 3, 2) - g_p[:, :, :4]).abs().max())
+        check(err <= 3e-3 * scale, f"shade_bwd library {label}: err {err} "
+              f"> 3e-3 of max {scale}")
+    return {"library_contrib_ms": kernels_ms(torch, contrib),
+            "library_index_add_ms": device_ms(
+                torch, lambda: acc.index_add_(0, index, flat)),
+            "library_einsum_ms": device_ms(
+                torch, lambda: torch.einsum("npk,npc->nkc", onehot, c))}
+
+
+def depth_bwd_library(torch, d, a, gcot, static, g_p):
+    """The depth backward's library yardstick: the contributions (coef px,
+    coef py, coef) and one `index_add_` of the covered pixels' into
+    (B T Kf, 3) buckets keyed by the argmax slot (selected outside the
+    timed call, as for the shade backward), checked against the plain
+    version's rows 9-11 (3e-3 of their maximum) and timed by device_ms
+    (the contributions by kernels_ms)."""
+    from homan_tpu_torch.render import depth
+    B, T, kf, P = d.shape[0], d.shape[1], static.kf, d[0, 0].numel()
+    dev = d.device
+    px, py, _ = depth._pixel_coords(static, T, dev)
+
+    def contrib():
+        coef = torch.where(d > 0.0, -gcot * d * d, torch.zeros((), device=dev))
+        return torch.stack([coef * px, coef * py, coef], dim=-1)
+
+    am = a.reshape(B * T, P).long()
+    covered = am >= 0
+    flat = contrib().reshape(B * T, P, 3)[covered]
+    index = (torch.arange(B * T, device=dev)[:, None] * kf + am)[covered]
+    acc = torch.zeros((B * T * kf, 3), device=dev)
+    acc.index_add_(0, index, flat)
+    g = acc.reshape(B, T, kf, 3).permute(0, 1, 3, 2)
+    scale = float(g_p.abs().max())
+    err = float((g - g_p[:, :, 9:12]).abs().max())
+    check(err <= 3e-3 * scale, f"depth_bwd library index_add_: err {err} > "
+          f"3e-3 of max {scale}")
+    return {"library_contrib_ms": kernels_ms(torch, contrib),
+            "library_index_add_ms": device_ms(
+                torch, lambda: acc.index_add_(0, index, flat))}
+
+
+def adversarial_residuals(torch, pattern, tp, ke, b=4, t=4, seed=0):
+    """Shade residuals (sil, amin, rx, ry, tc) and a cotangent, (b, t, tp,
+    tp), from a numpy seed, with the argmin slots of `pattern`: "none"
+    (every pixel -1), "one" (slot ke // 3 everywhere), "mod" (pixel index
+    mod Ke: every warp sees 32 distinct slots or more) or "last" (slot
+    Ke - 1 on every other pixel)."""
+    rng = np.random.RandomState(seed)
+    shape = (b, t, tp, tp)
+    idx = np.arange(tp * tp).reshape(tp, tp)
+    amin = {"none": np.full(shape, -1), "one": np.full(shape, ke // 3),
+            "mod": np.broadcast_to(idx % ke, shape),
+            "last": np.broadcast_to(np.where(idx % 2 == 0, ke - 1, -1),
+                                    shape)}[pattern]
+    arrays = (rng.uniform(0, 1, shape), rng.randn(*shape) * 0.01,
+              rng.randn(*shape) * 0.01, rng.uniform(0, 1, shape),
+              rng.randn(*shape))
+    f32 = [torch.from_numpy(x.astype(np.float32)).cuda() for x in arrays]
+    amin = torch.from_numpy(np.ascontiguousarray(amin, np.int32)).cuda()
+    res = (f32[0], amin, *f32[1:4])
+    return res, f32[4]
+
+
+def check_shade_bwd_adversarial(torch):
+    """The shade backward on adversarial residuals against its plain
+    version: within 3e-3 of the plain maximum, deterministic, rows 4-7
+    zero. Returns the largest error relative to that maximum."""
+    from homan_tpu_torch.render import shade
+    worst = {}
+    # Ke 3000 takes the finalize's second 2048-slot window.
+    for tp, ke in ((128, 96), (128, 512), (128, 3000), (24, 48), (200, 96)):
+        for pattern in ("none", "one", "mod", "last"):
+            res, gcot = adversarial_residuals(torch, pattern, tp, ke)
+            st = shade.ShadeStatic(tp, 2 * tp, 2, 1e-4, 0.01, ke)
+            g_k = shade.shade_bwd(res, gcot, st)
+            g_p = shade.shade_bwd_plain(res, gcot, st)
+            torch.cuda.synchronize()
+            label = f"{pattern}-tp{tp}-ke{ke}"
+            err = float((g_k - g_p).abs().max())
+            scale = float(g_p.abs().max())
+            check((scale > 0) == (pattern != "none"),
+                  f"adversarial {label}: plain maximum {scale}")
+            check(err <= 3e-3 * scale,
+                  f"adversarial {label}: gseg err {err} > 3e-3 of {scale}")
+            check(torch.equal(g_k, shade.shade_bwd(res, gcot, st)),
+                  f"adversarial {label}: backward is not deterministic")
+            check(not bool(g_k[:, :, 4:].any()),
+                  f"adversarial {label}: gseg rows 4-7 not zero")
+            worst[label] = err / scale if scale else err
+    print("shade_bwd adversarial residuals (err / plain max): "
+          + json.dumps(worst), flush=True)
+    return max(worst.values())
+
+
+def shade_bwd_scratch_bytes(torch, res, gcot, static, g_ref):
+    """The shade backward's scratch traffic, read from what its kernel
+    wrote: one call through the C interface with lists the script holds,
+    then each strip's count word; each list (a 4-byte count, 20 bytes per
+    entry) is written once and read once per 2048-slot window of the
+    finalize (csrc/shade.cu kWindow). None for a tile of one strip."""
+    from homan_tpu_torch.render import shade
+    B, T = res[0].shape[:2]
+    n_strips = -(-static.tile_px ** 2 // shade.BWD_STRIP_PIXELS)
+    if n_strips == 1:
+        return 0
+    lf = shade.bwd_list_floats(static.ke)
+    lists = torch.full((B * T * n_strips, lf), -1, dtype=torch.int32,
+                       device=res[0].device)
+    gseg = torch.empty_like(g_ref)
+    rc = shade._lib().shade_bwd(
+        *(x.data_ptr() for x in res), gcot.data_ptr(), lists.data_ptr(),
+        gseg.data_ptr(), B, T, static.tile_px, static.ke, n_strips,
+        static.sigma, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"shade_bwd launch failed: CUDA error {rc}")
+    torch.cuda.synchronize()
+    check(torch.equal(gseg, g_ref), "shade_bwd with the script's lists "
+          "differs from the wrapper's call")
+    counts = lists[:, 0]
+    check(bool(((counts >= 0) & (counts <= min(static.ke,
+                                               shade.BWD_STRIP_PIXELS))).all()),
+          "shade_bwd left a strip's count unwritten or out of range")
+    windows = -(-static.ke // 2048)
+    return (1 + windows) * (4 * counts.numel() + 20 * int(counts.sum()))
 
 
 def compare_kernels(torch, name, seg_pack, anchors, static, timed):
@@ -196,11 +454,15 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
           f"{name}: gseg err {g_err} > 3e-3 of max {g_scale}")
     check(torch.equal(g_k, shade.shade_bwd(k_out, gcot, static)),
           f"{name}: backward kernel is not deterministic")
-    (fb, fby), (bb, bby), fill, evaluated = bounds(seg_pack, anchors, static)
+    (fb, fby), (bb, bby), fill, evaluated, (bd, _), picked = bounds(
+        seg_pack, anchors, static)
+    scratch = shade_bwd_scratch_bytes(torch, k_out, gcot, static, g_k)
     out = {"bit_equal": all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
            "sil_err": sil_err, "argmin_agree": agree, "res_err": res_err,
            "gseg_err": g_err, "gseg_max": g_scale, "fwd_bound_ms": fb,
            "fwd_bound_by": fby, "bwd_bound_ms": bb, "bwd_bound_by": bby,
+           "bwd_dense_bound_ms": bd, "picked_share": picked,
+           "bwd_scratch_bytes": scratch,
            "valid_slot_share": fill, "evaluated_share": evaluated}
     if timed:
         out["fwd_ms"] = time_ms(torch, lambda: shade.shade_fwd(
@@ -213,6 +475,14 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
             k_out, gcot, static))
         out["bwd_plain_ms"] = time_ms(torch, lambda: shade.shade_bwd_plain(
             p_out, gcot, static), reps=20, inner=1)
+        out["fwd_device_ms"] = device_ms(torch, lambda: shade.shade_fwd(
+            seg_pack, anchors, static, True))
+        out["fwd_only_device_ms"] = device_ms(torch, lambda: shade.shade_fwd(
+            seg_pack, anchors, static, False))
+        out["bwd_device_ms"] = device_ms(torch, lambda: shade.shade_bwd(
+            k_out, gcot, static))
+        out["bwd_library"] = shade_bwd_library(torch, k_out, gcot, static,
+                                               g_p)
     print(f"kernel check [{name}] B,T,tp,ke={tuple(seg_pack.shape[:2])},"
           f"{static.tile_px},{static.ke}: " + json.dumps(out), flush=True)
     return out
@@ -294,6 +564,12 @@ def compare_depth(torch, name, face_pack, static, timed):
             k_d, k_a, gcot, static))
         out["bwd_plain_ms"] = time_ms(torch, lambda: depth.depth_bwd_plain(
             p_d, p_a, gcot, static), reps=10, inner=1)
+        out["fwd_device_ms"] = device_ms(torch, lambda: depth.depth_fwd(
+            fp, static))
+        out["bwd_device_ms"] = device_ms(torch, lambda: depth.depth_bwd(
+            k_d, k_a, gcot, static))
+        out["bwd_library"] = depth_bwd_library(torch, k_d, k_a, gcot, static,
+                                               g_p)
     print(f"depth check [{name}] B,T,tp,kf={tuple(fp.shape[:2])},"
           f"{static.tile_px},{static.kf}: " + json.dumps(out), flush=True)
     return out
@@ -327,6 +603,7 @@ def compare_voxelize(torch, name, verts, faces, grid, timed):
     out = {"phi_err": err, "inside_share": float(inside.float().mean()),
            "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense}
     out["ms"] = time_ms(torch, lambda: V.voxelize_pack(pack, grid))
+    out["device_ms"] = device_ms(torch, lambda: V.voxelize_pack(pack, grid))
     if timed:
         out["plain_ms"] = time_ms(torch, lambda: S.voxelize_interior_sdf(
             local, faces, grid), reps=3, warmup=1, inner=1)
@@ -356,12 +633,12 @@ def build_variant(path):
     return ctypes.CDLL(out)
 
 
-def ab_compare(torch, specs, vox_packs, shade_input, depth_packs):
-    """Each `name=path.cu` of `specs` (name voxelize, shade_fwd or depth;
-    path another source with the same C interface, e.g. the parent
-    commit's) against the package's kernels on the same inputs: its output
-    checked, then both timed in turns (package, variant, variant, package)
-    on each input."""
+def ab_compare(torch, specs, vox_packs, shade_inputs, depth_packs):
+    """Each `name=path.cu` of `specs` (name voxelize, shade_fwd, shade_bwd
+    or depth; path another source with the same C interface, e.g. the
+    parent commit's) against the package's kernels on the same inputs: its
+    output checked, then both timed in turns (package, variant, variant,
+    package) on each input, by time_ms and by device_ms."""
     import ctypes
     from homan_tpu_torch.interactions import voxelize as V
     from homan_tpu_torch.render import depth as D
@@ -394,7 +671,7 @@ def ab_compare(torch, specs, vox_packs, shade_input, depth_packs):
         elif name == "shade_fwd":
             fn = lib.shade_fwd
             fn.argtypes = [ptr] * 7 + [i32] * 6 + [f32] * 3 + [ptr]
-            seg, anc, st = shade_input
+            seg, anc, st = shade_inputs["fit"]
             seg, anc = seg.contiguous(), anc.contiguous()
             outs = [torch.empty(anc.shape, device=anc.device)
                     for _ in range(5)]
@@ -414,6 +691,50 @@ def ab_compare(torch, specs, vox_packs, shade_input, depth_packs):
                   f"{path}: sil differs from the package's")
             calls["shade_fwd[fit]"] = (
                 lambda: shade.shade_fwd(seg, anc, st, True), run)
+        elif name == "shade_bwd":
+            fn = lib.shade_bwd
+            fn.argtypes = [ptr] * 8 + [i32] * 5 + [f32, ptr]
+            # The package's sources say how many pixels a block of their
+            # first launch covers; the older ones (the first design) covered
+            # 256 and wrote dense (B, T, C, 4, Ke) partials.
+            try:
+                strip = int(lib.shade_bwd_strip_pixels())
+            except AttributeError:
+                strip = 256
+            for m in ("fit", "evidence-hand"):
+                seg, anc, st = shade_inputs[m]
+                res = shade.shade_fwd(seg.contiguous(), anc.contiguous(), st,
+                                      True)
+                B, T = seg.shape[:2]
+                tp, ke = st.tile_px, st.ke
+                n = -(-tp * tp // strip)
+                cap = min(ke, strip)
+                scratch = torch.empty(
+                    B * T * (n * max(4 * ke, 4 + -(-cap // 4) * 4 + 4 * cap)
+                             + 4), device=seg.device)
+                gcot = torch.randn(res[0].shape, device=seg.device,
+                                   generator=torch.Generator(
+                                       seg.device).manual_seed(0))
+                ref = shade.shade_bwd(res, gcot, st)
+                scale = float(shade.shade_bwd_plain(res, gcot, st).abs().max())
+                vg = torch.empty_like(ref)
+
+                def run(res=res, gcot=gcot, st=st, vg=vg, B=B, T=T, n=n,
+                        scratch=scratch):
+                    check(fn(*(x.data_ptr() for x in res), gcot.data_ptr(),
+                             scratch.data_ptr(), vg.data_ptr(), B, T,
+                             st.tile_px, st.ke, n, st.sigma, stream) == 0,
+                          f"{path}: shade_bwd launch failed")
+                run()
+                torch.cuda.synchronize()
+                err = float((vg - ref).abs().max())
+                check(err <= 3e-3 * scale, f"{path}: gseg on {m} differs "
+                      f"from the package's by {err} (plain max {scale})")
+                print(f"ab [shade_bwd] {m}: variant gseg within {err} of the "
+                      f"package's (plain max {scale})", flush=True)
+                calls[f"shade_bwd[{m}]"] = (
+                    lambda res=res, gcot=gcot, st=st: shade.shade_bwd(
+                        res, gcot, st), run)
         elif name == "depth":
             fwd, bwd = lib.depth_fwd, lib.depth_bwd
             fwd.argtypes = [ptr] * 3 + [i32] * 5 + [f32, ptr]
@@ -463,16 +784,25 @@ def ab_compare(torch, specs, vox_packs, shade_input, depth_packs):
                     lambda d=d, a=a, gcot=gcot, st=st: D.depth_bwd(
                         d, a, gcot, st), run_bwd)
         else:
-            raise RuntimeError(f"--ab takes voxelize=, shade_fwd= or depth=, "
-                               f"got {spec}")
+            raise RuntimeError(f"--ab takes voxelize=, shade_fwd=, "
+                               f"shade_bwd= or depth=, got {spec}")
         out = {}
         for label, pair in calls.items():
             turns = {"package": [], "variant": []}
+            dev_turns = {"package": [], "variant": []}
+            parts = {}
             for who in ("package", "variant", "variant", "package"):
-                turns[who].append(time_ms(torch, pair[who == "variant"]))
-            out[label] = {"turns_ms": turns,
-                          "package_ms": statistics.mean(turns["package"]),
-                          "variant_ms": statistics.mean(turns["variant"])}
+                fn_ = pair[who == "variant"]
+                turns[who].append(time_ms(torch, fn_))
+                dev_turns[who].append(device_ms(torch, fn_))
+                parts[who] = kernel_split_us(torch, fn_)
+            out[label] = {
+                "turns_ms": turns, "turns_device_ms": dev_turns,
+                "package_ms": statistics.mean(turns["package"]),
+                "variant_ms": statistics.mean(turns["variant"]),
+                "package_device_ms": statistics.mean(dev_turns["package"]),
+                "variant_device_ms": statistics.mean(dev_turns["variant"]),
+                "last_turn_kernels_us": parts}
         print(f"ab [{name}] package vs {path} (outputs "
               f"{'bit-equal' if name == 'depth' else 'checked'}): "
               + json.dumps(out), flush=True)
@@ -643,7 +973,7 @@ def main(argv=None) -> int:
     parser.add_argument("--ab", action="append", default=[],
                         metavar="NAME=PATH.cu",
                         help="also time another source of kernel NAME "
-                        "(voxelize, shade_fwd, depth) against the "
+                        "(voxelize, shade_fwd, shade_bwd, depth) against the "
                         "package's, in turns, after the kernel checks; the "
                         "fits are not run")
     ab = parser.parse_args(argv).ab
@@ -719,6 +1049,7 @@ def main(argv=None) -> int:
         shade_inputs[name] = (seg, anc, static)
         results[name] = compare_kernels(torch, name, seg, anc, static,
                                         timed=True)
+    adversarial_err = check_shade_bwd_adversarial(torch)
 
     # The interaction and ordinal-depth fits' scene: bench.py's
     # bench_config3 / bench_depth, 10 frames, 512^2 image, 256^2 ROI, with
@@ -775,7 +1106,7 @@ def main(argv=None) -> int:
                 torch, f"{m}-g{grid}", v, f, grid, timed=grid == GRID)
     if ab:
         ab_compare(torch, ab, {m: vox_packs[(m, GRID)] for m in meshes},
-                   shade_inputs["fit"], depth_packs)
+                   shade_inputs, depth_packs)
         print("kernel checks and --ab comparisons passed; the fits are not "
               "run", flush=True)
         return 0
@@ -846,22 +1177,36 @@ def main(argv=None) -> int:
         return sum(r[key] for r in rows) / len(rows)
 
     d_rows = [depth_results[(m, kf_fit)] for m in meshes]
+    d_lib = [r["bwd_library"] for r in d_rows]
     v_rows = [vox_results[(m, GRID)] for m in meshes]
+    s_lib = h["bwd_library"]
+    # `ms` runs the wrapper (host work included), `device_ms` the call on
+    # the device alone (CUDA events, cold L2); library_ms is the device time
+    # of the one PyTorch call that computes the same reduction from the
+    # contributions (the faster of `index_add_` and the one-hot `einsum`
+    # for shade_bwd), which the port never calls. Counted numbers (the
+    # dense bounds, the picked share) stay on the `kernel check` lines.
     kernels = [
         {"name": "shade_fwd", "route": "cuda",
          "source": "homan_tpu_torch/render/csrc/shade.cu",
          "replaces": "homan_tpu/render/pallas_shade.py:86",
          "launches": counts1["shade_fwd"], "max_abs_err": h["sil_err"],
-         "ms": h["fwd_ms"], "plain_ms": h["fwd_plain_ms"],
-         "bound_ms": h["fwd_bound_ms"], "bound_by": h["fwd_bound_by"],
-         "library_ms": None},
+         "ms": h["fwd_ms"], "device_ms": h["fwd_device_ms"],
+         "plain_ms": h["fwd_plain_ms"], "bound_ms": h["fwd_bound_ms"],
+         "bound_by": h["fwd_bound_by"], "library_ms": None},
         {"name": "shade_bwd", "route": "cuda",
          "source": "homan_tpu_torch/render/csrc/shade.cu",
          "replaces": "homan_tpu/render/pallas_shade.py:281",
          "launches": counts1["shade_bwd"], "max_abs_err": h["gseg_err"],
-         "ms": h["bwd_ms"], "plain_ms": h["bwd_plain_ms"],
-         "bound_ms": h["bwd_bound_ms"], "bound_by": h["bwd_bound_by"],
-         "library_ms": None},
+         "adversarial_rel_err": adversarial_err,
+         "ms": h["bwd_ms"], "device_ms": h["bwd_device_ms"],
+         "plain_ms": h["bwd_plain_ms"], "bound_ms": h["bwd_bound_ms"],
+         "bound_by": h["bwd_bound_by"],
+         "scratch_bytes": h["bwd_scratch_bytes"],
+         "library_ms": min(s_lib["library_index_add_ms"],
+                           s_lib["library_einsum_ms"]),
+         "library_call": "index_add_" if s_lib["library_index_add_ms"]
+         <= s_lib["library_einsum_ms"] else "einsum", **s_lib},
         # The depth pair runs twice per step, on the object's and the
         # hand's packs: times and bounds are the mean of one launch on each.
         {"name": "depth_fwd", "route": "cuda",
@@ -869,8 +1214,9 @@ def main(argv=None) -> int:
          "replaces": "homan_tpu/render/pallas_depth.py:56",
          "launches": counts3["depth_fwd"],
          "max_abs_err": max(r["depth_abs_err"] for r in d_rows),
-         "ms": mean2("fwd_ms", d_rows), "plain_ms": mean2("fwd_plain_ms",
-                                                          d_rows),
+         "ms": mean2("fwd_ms", d_rows),
+         "device_ms": mean2("fwd_device_ms", d_rows),
+         "plain_ms": mean2("fwd_plain_ms", d_rows),
          "bound_ms": mean2("fwd_bound_ms", d_rows),
          "bound_by": d_rows[1]["fwd_bound_by"], "library_ms": None},
         {"name": "depth_bwd", "route": "cuda",
@@ -878,17 +1224,22 @@ def main(argv=None) -> int:
          "replaces": "homan_tpu/render/pallas_depth.py:180",
          "launches": counts3["depth_bwd"],
          "max_abs_err": max(r["gpack_err"] for r in d_rows),
-         "ms": mean2("bwd_ms", d_rows), "plain_ms": mean2("bwd_plain_ms",
-                                                          d_rows),
+         "ms": mean2("bwd_ms", d_rows),
+         "device_ms": mean2("bwd_device_ms", d_rows),
+         "plain_ms": mean2("bwd_plain_ms", d_rows),
          "bound_ms": mean2("bwd_bound_ms", d_rows),
-         "bound_by": d_rows[1]["bwd_bound_by"], "library_ms": None},
+         "bound_by": d_rows[1]["bwd_bound_by"],
+         "library_ms": mean2("library_index_add_ms", d_lib),
+         "library_call": "index_add_",
+         "library_contrib_ms": mean2("library_contrib_ms", d_lib)},
         # The voxelizer runs twice per step, on the hand and the object.
         {"name": "voxelize", "route": "cuda",
          "source": "homan_tpu_torch/interactions/csrc/voxelize.cu",
          "replaces": "homan_tpu/interactions/pallas_sdf.py:35",
          "launches": counts2["voxelize"],
          "max_abs_err": max(r["phi_err"] for r in v_rows),
-         "ms": mean2("ms", v_rows), "plain_ms": mean2("plain_ms", v_rows),
+         "ms": mean2("ms", v_rows), "device_ms": mean2("device_ms", v_rows),
+         "plain_ms": mean2("plain_ms", v_rows),
          "bound_ms": mean2("bound_ms", v_rows),
          "bound_by": v_rows[0]["bound_by"], "library_ms": None},
     ]
@@ -910,8 +1261,10 @@ def main(argv=None) -> int:
             "ms_per_step": walls3[1] / ITERS3 * 1e3, "profiled": step3},
     }
     for k in kernels:
-        check(k["ms"] >= k["bound_ms"], f"{k['name']} reads {k['ms']} ms, "
-              f"below its bound {k['bound_ms']} ms: the bound is wrong")
+        for key in ("ms", "device_ms"):
+            check(k[key] >= k["bound_ms"], f"{k['name']} reads {key} "
+                  f"{k[key]}, below its bound {k['bound_ms']} ms: the bound "
+                  f"is wrong")
     print(json.dumps(fits), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,9 +13,9 @@
 // slot) pairs a kernel can prove empty, and its time by the busiest tiles.
 //
 // Forward design.
-//  * A block owns a 16 x 16 region of one tile (tp a multiple of 16); a
-//    warp owns an 8 x 8 sub-tile of it, 2 adjacent pixels of one row per
-//    lane. Grid ((tp/16)^2, T, B), 128 threads: a busy 64^2 tile
+//  * A block owns a 16 x 16 region of one tile; a warp owns an 8 x 8
+//    sub-tile of it, 2 adjacent pixels of one row per lane. Grid
+//    (ceil(tp/16)^2, T, B), 128 threads: a busy 64^2 tile
 //    spreads over 16 blocks, which the scheduler places on many SMs (at
 //    R = 32 the busy tiles' warps crowded fewer SMs and the forward took
 //    1.2x as long; 16 x 16 sub-tiles at 8 pixels a lane, 1.7-2.2x:
@@ -41,6 +41,14 @@
 //  * A pass loads the next pass's slots before it culls and scans its own,
 //    so the loads' latency hides behind that work. A tile whose slot 0 is
 //    not valid is empty: its blocks write 0 and -1 and leave.
+//  * Any tile width. A tile that is not a multiple of 16 runs a second
+//    instantiation (kRagged): the regions and sub-tiles at its edge cover
+//    only the pixels inside it. Their cull boxes are clamped to those
+//    pixels (so they stay conservative and cull no less), a sub-tile
+//    wholly outside culls and scans nothing, and a lane stores only its
+//    pixels inside the tile, by scalars (a row is not 8-byte aligned when
+//    tp is odd). The per-pixel scan is unchanged, so the outputs stay
+//    bit-equal to the plain version's.
 //
 // Backward design.
 //  * Bound: bytes. ~6 operations per pixel against 12 bytes read per pixel
@@ -127,9 +135,12 @@ __device__ __forceinline__ float4 load_slot(const float* pack, int kf,
 }
 
 // A lane's kPx pixels: depth = 1 / max(best, 1e-9) and the winning slot
-// where best > 0, else 0 and -1.
+// where best > 0, else 0 and -1. kRagged: only the first n_in pixels, by
+// scalars.
+template <bool kRagged>
 __device__ __forceinline__ void store_px(float* depth, int* amax, size_t pix,
-                                         const float* best, const int* am) {
+                                         const float* best, const int* am,
+                                         int n_in) {
   static_assert(kPx == 2, "a lane's pixels move as one float2 and one int2");
   float d[kPx];
   int a_out[kPx];
@@ -139,10 +150,21 @@ __device__ __forceinline__ void store_px(float* depth, int* amax, size_t pix,
     d[q] = covered ? 1.0f / fmaxf(best[q], 1e-9f) : 0.0f;
     a_out[q] = covered ? am[q] : -1;
   }
+  if (kRagged) {
+#pragma unroll
+    for (int q = 0; q < kPx; ++q) {
+      if (q < n_in) {
+        depth[pix + q] = d[q];
+        amax[pix + q] = a_out[q];
+      }
+    }
+    return;
+  }
   *reinterpret_cast<float2*>(depth + pix) = make_float2(d[0], d[1]);
   *reinterpret_cast<int2*>(amax + pix) = make_int2(a_out[0], a_out[1]);
 }
 
+template <bool kRagged>
 __global__ void __launch_bounds__(kFwdThreads)
 depth_fwd_kernel(const float* __restrict__ face_pack,
                  float* __restrict__ depth, int* __restrict__ amax, int T,
@@ -152,7 +174,7 @@ depth_fwd_kernel(const float* __restrict__ face_pack,
   __shared__ unsigned short s_list[kFwdWarps][kFwdThreads];
   __shared__ int s_count[kFwdWarps];
 
-  const int per_row = tp / kRegion;
+  const int per_row = (tp + kRegion - 1) / kRegion;
   const int t = blockIdx.y;
   const size_t tile = (size_t)blockIdx.z * T + t;
   const float* pack = face_pack + tile * 16 * kf;
@@ -164,20 +186,30 @@ depth_fwd_kernel(const float* __restrict__ face_pack,
   const int wx0 = rx0 + (warp % kRegionWarps) * kSub;
   const int wy0 = ry0 + (warp / kRegionWarps) * kSub;
 
+  // The last pixel of the region and of the sub-tile in each direction;
+  // kRagged: clamped to the tile (a sub-tile wholly outside it has none).
+  const int rx1 = kRagged ? min(rx0 + kRegion, tp) - 1 : rx0 + kRegion - 1;
+  const int ry1 = kRagged ? min(ry0 + kRegion, tp) - 1 : ry0 + kRegion - 1;
+  const bool sub_in = !kRagged || (wx0 < tp && wy0 < tp);  // warp-uniform
+  const int wx1 = kRagged ? min(wx0 + kSub, tp) - 1 : wx0 + kSub - 1;
+  const int wy1 = kRagged ? min(wy0 + kSub, tp) - 1 : wy0 + kSub - 1;
+
   // Pixel centres in the plain version's expressions.
   const float gx = (float)(t % g);
   const float gy = (float)(t / g);
   const float ftp = (float)tp;
   const float bx0 = (gx * ftp + (float)rx0 + 0.5f) * inv_s;
-  const float bx1 = (gx * ftp + (float)(rx0 + kRegion - 1) + 0.5f) * inv_s;
+  const float bx1 = (gx * ftp + (float)rx1 + 0.5f) * inv_s;
   const float by0 = (gy * ftp + (float)ry0 + 0.5f) * inv_s;
-  const float by1 = (gy * ftp + (float)(ry0 + kRegion - 1) + 0.5f) * inv_s;
+  const float by1 = (gy * ftp + (float)ry1 + 0.5f) * inv_s;
   const float sx0 = (gx * ftp + (float)wx0 + 0.5f) * inv_s;
-  const float sx1 = (gx * ftp + (float)(wx0 + kSub - 1) + 0.5f) * inv_s;
+  const float sx1 = (gx * ftp + (float)wx1 + 0.5f) * inv_s;
   const float sy0 = (gy * ftp + (float)wy0 + 0.5f) * inv_s;
-  const float sy1 = (gy * ftp + (float)(wy0 + kSub - 1) + 0.5f) * inv_s;
+  const float sy1 = (gy * ftp + (float)wy1 + 0.5f) * inv_s;
   const int iy = wy0 + lane / kLanesPerRow;
   const int ix0 = wx0 + (lane % kLanesPerRow) * kPx;
+  // kRagged: the lane's pixels inside the tile (0 to kPx).
+  const int n_in = iy < tp ? max(0, min(kPx, tp - ix0)) : 0;
   const float py = (gy * ftp + (float)iy + 0.5f) * inv_s;
   float px[kPx], best[kPx];
   int am[kPx];
@@ -193,7 +225,7 @@ depth_fwd_kernel(const float* __restrict__ face_pack,
   // The valid slots are a prefix: a tile whose slot 0 is not valid is
   // empty.
   if (!(kf > 0 && pack[12 * kf] > 0.5f)) {  // block-uniform
-    store_px(depth, amax, pix, best, am);
+    store_px<kRagged>(depth, amax, pix, best, am, n_in);
     return;
   }
   // Pass 0's slot of this thread; each pass loads the next pass's while it
@@ -237,7 +269,7 @@ depth_fwd_kernel(const float* __restrict__ face_pack,
     // Cull: the staged slots that can be inside in this warp's sub-tile,
     // in ascending order.
     int n_mine = 0;
-    for (int j0 = 0; j0 < n_staged; j0 += 32) {
+    for (int j0 = 0; sub_in && j0 < n_staged; j0 += 32) {
       const int j = j0 + lane;
       const bool mine =
           j < n_staged && face_may_cover(s_slot[0][j], s_slot[1][j],
@@ -278,7 +310,7 @@ depth_fwd_kernel(const float* __restrict__ face_pack,
     b = bn;
     c = cn;
   }
-  store_px(depth, amax, pix, best, am);
+  store_px<kRagged>(depth, amax, pix, best, am, n_in);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -449,18 +481,24 @@ depth_bwd_finalize_kernel(const float* __restrict__ lists,
 // C interface, loaded with ctypes. Each entry point launches on `stream`
 // and returns cudaGetLastError() (0 = launched).
 //
-// depth_fwd takes tp a multiple of 16 (render/depth.py raises on others;
-// here they return cudaErrorInvalidValue); kf slots per tile, valid slots
-// a prefix.
+// depth_fwd takes any tp > 0 (others return cudaErrorInvalidValue); kf
+// slots per tile, valid slots a prefix.
 extern "C" int depth_fwd(const float* face_pack, float* depth, int* amax,
                          int B, int T, int g, int tp, int kf, float inv_s,
                          void* stream) {
-  if (tp <= 0 || tp % kRegion != 0) return (int)cudaErrorInvalidValue;
-  const int per_row = tp / kRegion;
+  if (tp <= 0) return (int)cudaErrorInvalidValue;
+  const int per_row = (tp + kRegion - 1) / kRegion;
   const dim3 grid(per_row * per_row, T, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  depth_fwd_kernel<<<grid, kFwdThreads, 0, s>>>(face_pack, depth, amax, T,
-                                                g, tp, kf, inv_s);
+  if (tp % kRegion != 0) {
+    depth_fwd_kernel<true><<<grid, kFwdThreads, 0, s>>>(face_pack, depth,
+                                                        amax, T, g, tp, kf,
+                                                        inv_s);
+  } else {
+    depth_fwd_kernel<false><<<grid, kFwdThreads, 0, s>>>(face_pack, depth,
+                                                         amax, T, g, tp, kf,
+                                                         inv_s);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -50,8 +50,8 @@ BLOCK_PIXELS = 256
 BWD_LIST_FLOATS = 4 + 4 * BLOCK_PIXELS
 # The forward's geometry (csrc/depth.cu kSub, kRegion): a block owns a
 # FWD_REGION x FWD_REGION region of a tile, a warp an FWD_SUB x FWD_SUB
-# sub-tile of it. The kernel takes tiles of a multiple of FWD_REGION
-# pixels.
+# sub-tile of it; at the edge of a tile that is not a multiple of
+# FWD_REGION, regions and sub-tiles hold only the pixels inside it.
 FWD_SUB = 8
 FWD_REGION = 16
 # Per evaluated (pixel, slot), the forward kernel's fp32 arithmetic and
@@ -115,22 +115,32 @@ def depth_fwd_plain(face_pack, static: DepthStatic):
 
 
 def _check_tile(tp):
-    if tp <= 0 or tp % FWD_REGION:
-        raise ValueError(f"the depth kernel takes tiles of a multiple of "
-                         f"{FWD_REGION} pixels, got {tp}")
+    if tp <= 0:
+        raise ValueError(f"the depth kernel takes tiles of a positive "
+                         f"number of pixels, got {tp}")
+
+
+def _box_ends(tp: int, side: int):
+    """First and last pixel of each side-wide box of a tp-wide tile, the
+    last clamped to the tile (as the kernel clamps its ragged edge)."""
+    first = torch.arange(0, tp, side)
+    return first, (first + side - 1).clamp(max=tp - 1)
 
 
 def _box_keep(face_pack, static: DepthStatic, side: int):
-    """(B, T, n, n, kf) bool, n = tp / side: the kernel's cull test of each
-    slot against each side x side box of pixel centres, in its float32
-    expressions: no edge's rounded maximum over the box's four corner
-    centres, plus the slack (|a| + |b| + |c|) 2^-20, is negative."""
+    """(B, T, n, n, kf) bool, n = ceil(tp / side): the kernel's cull test
+    of each slot against each side x side box of pixel centres (clamped to
+    the tile), in its float32 expressions: no edge's rounded maximum over
+    the box's four corner centres, plus the slack (|a| + |b| + |c|) 2^-20,
+    is negative."""
     T = face_pack.shape[1]
     px, py, _ = _pixel_coords(static, T, face_pack.device)
-    x0 = px[:, :, 0, 0::side][:, :, None, :, None]  # (1, T, 1, n, 1)
-    x1 = px[:, :, 0, side - 1::side][:, :, None, :, None]
-    y0 = py[:, :, 0::side, 0][:, :, :, None, None]  # (1, T, n, 1, 1)
-    y1 = py[:, :, side - 1::side, 0][:, :, :, None, None]
+    first, last = (i.to(face_pack.device)
+                   for i in _box_ends(static.tile_px, side))
+    x0 = px[:, :, 0, first][:, :, None, :, None]  # (1, T, 1, n, 1)
+    x1 = px[:, :, 0, last][:, :, None, :, None]
+    y0 = py[:, :, first, 0][:, :, :, None, None]  # (1, T, n, 1, 1)
+    y1 = py[:, :, last, 0][:, :, :, None, None]
     keep = None
     for i in range(3):
         a, b, c = (face_pack[:, :, 3 * i + j][:, :, None, None, :]
@@ -145,30 +155,44 @@ def _box_keep(face_pack, static: DepthStatic, side: int):
 
 
 def cull_keep(face_pack, static: DepthStatic):
-    """(B, T, tp/FWD_SUB, tp/FWD_SUB, kf) bool: the valid slots the forward
-    kernel scans for each warp's sub-tile (its block's region test, then
-    the sub-tile's), and (B, T, tp/FWD_REGION, tp/FWD_REGION, kf) the
-    region test's survivors among the valid slots."""
+    """(B, T, n, n, kf) bool, n = ceil(tp/FWD_SUB): the valid slots the
+    forward kernel scans for each warp's sub-tile (its block's region test,
+    then the sub-tile's), and (B, T, m, m, kf), m = ceil(tp/FWD_REGION),
+    the region test's survivors among the valid slots."""
     _check_tile(static.tile_px)
+    n = -(-static.tile_px // FWD_SUB)
     valid = (face_pack[:, :, 12] > 0.5)[:, :, None, None, :]
     in_region = _box_keep(face_pack, static, FWD_REGION) & valid
     r = FWD_REGION // FWD_SUB
-    keep = (_box_keep(face_pack, static, FWD_SUB)
-            & in_region.repeat_interleave(r, 2).repeat_interleave(r, 3))
+    region_of_sub = in_region.repeat_interleave(r, 2).repeat_interleave(
+        r, 3)[:, :, :n, :n]
+    keep = _box_keep(face_pack, static, FWD_SUB) & region_of_sub
     return keep, in_region
+
+
+def _box_counts(tp: int, side: int, inner: int):
+    """(n, n) int64, n = ceil(tp / side): the inner-wide boxes (1 for
+    pixels) inside the tile in each side-wide box."""
+    first, last = _box_ends(tp, side)
+    per = -(-(last - first + 1) // inner)
+    return per[:, None] * per[None, :]
 
 
 def fwd_work(face_pack, static: DepthStatic) -> dict:
     """What the forward kernel works on these inputs, counted by replaying
-    its cull (`cull_keep`): (region, valid slot) cull tests, (sub-tile,
-    slot kept by its region) cull tests, (pixel, slot kept by its sub-tile)
-    evaluations, and the (pixel, valid slot) pairs a dense scan evaluates."""
+    its cull (`cull_keep`): (region, valid slot) cull tests, (sub-tile
+    inside the tile, slot kept by its region) cull tests, (pixel inside
+    the tile, slot kept by its sub-tile) evaluations, and the (pixel, valid
+    slot) pairs a dense scan evaluates."""
     tp = static.tile_px
     keep, in_region = cull_keep(face_pack, static)
     n_valid = int((face_pack[:, :, 12] > 0.5).sum())
-    return {"region_tests": n_valid * (tp // FWD_REGION) ** 2,
-            "sub_tests": int(in_region.sum()) * (FWD_REGION // FWD_SUB) ** 2,
-            "pixel_slots": int(keep.sum()) * FWD_SUB ** 2,
+    dev = face_pack.device
+    subs = _box_counts(tp, FWD_REGION, FWD_SUB).to(dev)
+    pixels = _box_counts(tp, FWD_SUB, 1).to(dev)
+    return {"region_tests": n_valid * (-(-tp // FWD_REGION)) ** 2,
+            "sub_tests": int((in_region.sum(-1) * subs).sum()),
+            "pixel_slots": int((keep.sum(-1) * pixels).sum()),
             "valid_pixel_slots": n_valid * tp * tp}
 
 

@@ -31,10 +31,13 @@ import torch
 shade_fwd_launches = 0
 shade_bwd_launches = 0
 
-# Pixels per block of the backward's partial sums.
-BLOCK_PIXELS = 256
-# Adjacent pixels of one row per thread of the forward (csrc/shade.cu kPx):
-# the tile width must be a multiple of it.
+# Pixels per strip of the backward (csrc/shade.cu kStripPx): one block of
+# its first launch, whose compact list of slot sums the second adds in
+# strip order; a smaller tile is one strip.
+BWD_STRIP_PIXELS = 1024
+# Adjacent pixels of one row per thread of the forward (csrc/shade.cu kPx).
+# A tile that is not a multiple of it (or wider than 1024 pixels) runs the
+# kernel's ragged instantiation; `fwd_work` counts the other only.
 FWD_PIXELS_PER_THREAD = 8
 # The forward kernel's fp32 arithmetic, compare and select operations
 # (csrc/shade.cu), an FMA counted as two; `fwd_work` counts what they
@@ -60,6 +63,15 @@ FWD_DIST_OPS_PER_PIXEL_SLOT = 37
 FWD_DMAX_OPS_PER_GROUP_SLOT = 7
 # Per pixel, the backward's contribution math (base, wa, wb, 4 products).
 BWD_OPS_PER_PIXEL = 14
+
+
+def bwd_list_floats(ke: int) -> int:
+    """Floats of one strip's compact list in the backward's scratch
+    (csrc/shade.cu list_floats): the count, padded to 4, then up to
+    min(Ke, BWD_STRIP_PIXELS) slots, padded to a multiple of 4, and as many
+    float4 sums."""
+    cap = min(ke, BWD_STRIP_PIXELS)
+    return 4 + -(-cap // 4) * 4 + 4 * cap
 
 
 def fwd_work_ops(work: dict) -> int:
@@ -188,6 +200,10 @@ def fwd_work(seg_pack, anchors, static: ShadeStatic) -> dict:
     kernel's float32 expressions, so the count is exact)."""
     B, T = seg_pack.shape[:2]
     tp, npx = static.tile_px, FWD_PIXELS_PER_THREAD
+    if tp % npx or tp > 128 * npx:
+        raise ValueError(f"fwd_work replays the kernel's instantiation for "
+                         f"tiles of a multiple of {npx} pixels up to "
+                         f"{128 * npx}, got {tp}")
     dev = seg_pack.device
     px, py, _ = _pixel_coords(static, T, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -297,9 +313,6 @@ def shade_fwd(seg_pack, anchors, static: ShadeStatic,
     dev = seg_pack.device
     _check("seg_pack", seg_pack, (B, T, 8, ke), torch.float32, dev)
     _check("anchors", anchors, (B, T, tp, tp), torch.float32, dev)
-    if tp % FWD_PIXELS_PER_THREAD:
-        raise ValueError(f"the shade kernel takes tiles of a multiple of "
-                         f"{FWD_PIXELS_PER_THREAD} pixels, got {tp}")
     if anchors.data_ptr() % 16:  # the kernel reads anchors as float4
         anchors = anchors.clone()
     px_shape = (B, T, tp, tp)
@@ -341,18 +354,21 @@ def shade_bwd(residuals, gcot, static: ShadeStatic):
         dt = torch.int32 if name == "amin" else torch.float32
         _check(name, x, px_shape, dt, dev)
     _check("gcot", gcot, px_shape, torch.float32, dev)
-    n_chunks = -(-tp * tp // BLOCK_PIXELS)
     gseg = torch.empty((B, T, 8, ke), dtype=torch.float32, device=dev)
     if B * T == 0:
         return gseg
-    partial = torch.empty((B, T, n_chunks, 4, ke), dtype=torch.float32,
-                          device=dev)
+    n_strips = -(-tp * tp // BWD_STRIP_PIXELS)
+    # Each strip's compact list; only its count and entries are written. A
+    # tile of one strip writes gseg directly and takes none.
+    lists = torch.empty(B * T * n_strips * bwd_list_floats(ke)
+                        if n_strips > 1 else 0, dtype=torch.float32,
+                        device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.shade_bwd(*(x.data_ptr() for x in residuals),
-                           gcot.data_ptr(), partial.data_ptr(),
-                           gseg.data_ptr(), B, T, tp, ke, n_chunks,
+                           gcot.data_ptr(), lists.data_ptr(),
+                           gseg.data_ptr(), B, T, tp, ke, n_strips,
                            static.sigma, stream)
     if rc != 0:
         raise RuntimeError(f"shade_bwd kernel launch failed: CUDA error {rc}")

@@ -87,6 +87,78 @@ def test_kernels_match_plain(cuda, case):
     assert torch.equal(g_k, shade.shade_bwd(k, gcot, static))
 
 
+# (mesh, image size, tile, edges per tile) at tiles the kernel's float4
+# instantiation does not take: not a multiple of 8 (12, 13: scalar loads
+# and stores, odd rows) or wider than 1024 (two column segments); 24, a
+# multiple of 8 but not of the depth kernel's 16, for comparison.
+RAGGED_SHADE_CASES = [("object", 48, 12, 64), ("object", 48, 24, 64),
+                      ("hand", 48, 24, 64), ("object", 26, 13, 48),
+                      ("object", 1040, 1040, 48)]
+
+
+@pytest.mark.parametrize("case", RAGGED_SHADE_CASES)
+def test_shade_kernels_at_ragged_tiles_match_plain(cuda, case):
+    seg, anc, static = _pack(cuda, *case)
+    n0, m0 = shade.shade_fwd_launches, shade.shade_bwd_launches
+    k = shade.shade_fwd(seg, anc, static, want_residuals=True)
+    only = shade.shade_fwd(seg, anc, static, want_residuals=False)[0]
+    p = shade.shade_fwd_plain(seg, anc, static, True)
+    assert shade.shade_fwd_launches == n0 + 2
+    # The same arithmetic per pixel as the plain version: bit-equal.
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert torch.equal(only, k[0])
+    assert bool((p[1] >= 0).any())
+    gcot = torch.randn(k[0].shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    g_k = shade.shade_bwd(k, gcot, static)
+    g_p = shade.shade_bwd_plain(p, gcot, static)
+    assert shade.shade_bwd_launches == m0 + 1
+    scale = g_p.abs().max().item()
+    assert scale > 0
+    assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
+    assert torch.equal(g_k, shade.shade_bwd(k, gcot, static))
+
+
+def adversarial_residuals(device, pattern, tp, ke, b=2, t=4, seed=0):
+    """Residuals (sil, amin, rx, ry, tc) and a cotangent, (b, t, tp, tp),
+    from a numpy seed, with the argmin slots of `pattern`: "none" (every
+    pixel -1), "one" (every pixel on slot ke // 3), "mod" (pixel index mod
+    Ke, so every warp sees 32 distinct slots or more) or "last" (slot Ke - 1
+    on every other pixel, -1 elsewhere)."""
+    rng = np.random.RandomState(seed)
+    shape = (b, t, tp, tp)
+    idx = np.arange(tp * tp).reshape(tp, tp)
+    amin = {"none": np.full(shape, -1),
+            "one": np.full(shape, ke // 3),
+            "mod": np.broadcast_to(idx % ke, shape),
+            "last": np.broadcast_to(np.where(idx % 2 == 0, ke - 1, -1),
+                                    shape)}[pattern]
+    arrays = (rng.uniform(0, 1, shape), amin.astype(np.int32),
+              rng.randn(*shape) * 0.01, rng.randn(*shape) * 0.01,
+              rng.uniform(0, 1, shape), rng.randn(*shape))
+    out = [torch.from_numpy(np.ascontiguousarray(
+        a, np.int32 if a.dtype == np.int32 else np.float32)).to(device)
+        for a in arrays]
+    return tuple(out[:5]), out[5]
+
+
+@pytest.mark.parametrize("pattern", ["none", "one", "mod", "last"])
+@pytest.mark.parametrize("tp", [16, 24, 128, 200])
+@pytest.mark.parametrize("ke", [48, 96, 512, 3000])  # 3000: two windows
+def test_shade_backward_on_adversarial_residuals(cuda, pattern, tp, ke):
+    res, gcot = adversarial_residuals(cuda, pattern, tp, ke)
+    static = shade.ShadeStatic(tp, 2 * tp, 2, 1e-4, 0.01, ke)
+    m0 = shade.shade_bwd_launches
+    g_k = shade.shade_bwd(res, gcot, static)
+    g_p = shade.shade_bwd_plain(res, gcot, static)
+    assert shade.shade_bwd_launches == m0 + 1
+    scale = g_p.abs().max().item()
+    assert (scale > 0) == (pattern != "none")
+    assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
+    assert torch.equal(g_k, shade.shade_bwd(res, gcot, static))
+    assert not bool(g_k[:, :, 4:].any())
+
+
 def test_rasterize_soft_gradient_on_card_matches_cpu(cuda):
     verts, faces, K = raster_mesh("object")
     settings = tr.RasterSettings(64, tile_px=32, edges_per_tile=96)
@@ -113,7 +185,12 @@ DEPTH_CASES = [("object", 64, 16, 32), ("object", 128, 64, 1024),
                ("hand", 128, 32, 256), ("hand", 128, 64, 2048),
                ("hand", 32, 16, 2048), ("object", 128, 128, 1024),
                ("adversarial", 32, 16, 0), ("adversarial", 64, 32, 1),
-               ("object", 96, 48, 512), ("adversarial", 32, 16, 2, 2000)]
+               ("object", 96, 48, 512), ("adversarial", 32, 16, 2, 2000),
+               # tiles that are not a multiple of 16: the edge regions and
+               # sub-tiles are clamped to the tile
+               ("object", 32, 8, 256), ("object", 48, 24, 512),
+               ("hand", 96, 24, 640), ("object", 80, 40, 512),
+               ("adversarial", 48, 24, 4), ("adversarial", 80, 40, 5)]
 
 
 def _depth_pack(device, mesh, S, tp, kf, lead=0):
@@ -155,12 +232,22 @@ def test_depth_kernels_match_plain(cuda, case):
     assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
     assert torch.equal(g_k, tdepth.depth_bwd(k_d, k_a, gcot, static))
     assert not bool(torch.cat([g_k[:, :, :9], g_k[:, :, 12:]], 2).any())
+    tp = static.tile_px
+    if tp % tdepth.FWD_REGION:  # the replay of the clamped cull keeps
+        keep, _ = tdepth.cull_keep(pack, static)  # every inside pixel
+        kept = keep.repeat_interleave(tdepth.FWD_SUB, 2).repeat_interleave(
+            tdepth.FWD_SUB, 3)[:, :, :tp, :tp]
+        px, py, _ = tdepth._pixel_coords(static, pack.shape[1], cuda)
+        for k in range(int(pack[:, :, 12].sum(-1).max())):
+            inside, invz = tdepth._slot_inside(pack[..., None, None], k,
+                                               px, py)
+            assert not bool((inside & (invz > 0) & ~kept[..., k]).any())
 
 
 def test_depth_kernel_refuses_other_tiles(cuda):
-    for tp in (8, 24):
-        static = tdepth.DepthStatic(tp, 2 * tp, 2, 4)
-        with pytest.raises(ValueError, match="multiple of 16"):
+    for tp in (0, -16):
+        static = tdepth.DepthStatic(tp, 32, 2, 4)
+        with pytest.raises(ValueError, match="positive number of pixels"):
             tdepth.depth_fwd(torch.zeros((1, 4, 16, 4), device=cuda),
                              static)
 

@@ -35,6 +35,11 @@ from torch_port_common import (adversarial_depth_pack, assert_grad_close,
 # per-tile demand and one that holds every face, for each mesh.
 DEPTH_CASES = [("object", 64, 16, 32), ("object", 64, 16, 1024),
                ("hand", 128, 32, 128), ("hand", 128, 32, 640)]
+# Tiles that are not a multiple of the kernel's 16-pixel regions: the
+# JAX kernel takes them (homan_tpu/render/pallas_shade.py pix_shape), and
+# so does the port's.
+TILE_CASES = [("object", 32, 8, 256), ("object", 48, 24, 512),
+              ("hand", 96, 24, 640)]
 
 
 def _ids(c):
@@ -167,16 +172,63 @@ def test_depth_plain_matches_pallas_interpret(case):
         assert not jg.any() and not tg.any()
 
 
+def _on_an_edge(pack, static, b, t, iy, ix, k, inside):
+    """Whether slot k's inside test at pixel (b, t, iy, ix) is decided by
+    rounding: `inside`, some edge of the slot is within (|a| + |b| + |c|)
+    2^-20 of zero there (the rounding bound of a px + b py + c that the
+    kernel's cull uses); not `inside`, every edge that fails does so by no
+    more than that."""
+    px, py, _ = tdepth._pixel_coords(static, pack.shape[1], pack.device)
+    x, y = px[0, t, 0, ix], py[0, t, iy, 0]
+    f = pack[b, t, :9, k].reshape(3, 3)
+    e = f[:, 0] * x + f[:, 1] * y + f[:, 2]
+    slack = f.abs().sum(1) * 2.0 ** -20
+    if inside:
+        return bool((e.abs() <= slack).any())
+    return bool(((e >= 0) | (-e <= slack)).all())
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=_ids)
+def test_depth_plain_matches_pallas_interpret_at_ragged_tiles(case):
+    """Tiles that are not a multiple of 16, in the bands of the test above.
+    Where the winners differ and the depths do not tie, the pixel lies on a
+    shared edge: the JAX package's CPU path evaluates the edge lines with
+    fused multiply-adds, the port never does, and the two sides put such a
+    pixel into different faces (the hand at tile 24 has one)."""
+    jpack, jstatic = _jax_pack(case)
+    static = tdepth.DepthStatic(*jstatic)
+    assert static.tile_px % tdepth.FWD_REGION
+    jd, ja, gcot, jg = _pallas_outputs(case)
+    pack = torch.from_numpy(jpack)
+    td, ta = (t2n(x) for x in tdepth.depth_fwd(pack, static))
+    covered = jd > 0
+    np.testing.assert_array_equal(td > 0, covered)
+    np.testing.assert_allclose(td, jd, atol=1e-5, rtol=0)
+    same = ta == ja
+    assert same.mean() >= 0.999
+    assert (ta[~covered] == -1).all()
+    for b, t, iy, ix in np.argwhere(~same):
+        assert (td[b, t, iy, ix] == jd[b, t, iy, ix]
+                or _on_an_edge(pack, static, b, t, iy, ix,
+                               ja[b, t, iy, ix], inside=False)
+                or _on_an_edge(pack, static, b, t, iy, ix,
+                               ta[b, t, iy, ix], inside=True))
+    tg = t2n(tdepth.depth_bwd(torch.from_numpy(jd), torch.from_numpy(ja),
+                              torch.from_numpy(gcot), static))
+    assert_grad_close(tg, jg, name="gpack")
+
+
 # The kernel's cull (replayed on the host by depth.cull_keep) on the JAX
 # prep's packs above and on hand-built adversarial packs at tiles 16, 32
 # and 48 (tests/torch_port_common.py adversarial_depth_pack: axis-aligned
 # edges through pixel centres, slivers, faces touching a sub-tile only at a
 # corner centre, equal-invz ties; the last case puts 2,000 faces that are
-# inside nowhere first, so the winners sit past slot 2,048).
-CULL_CASES = DEPTH_CASES + [("adversarial", 32, 16, 0),
-                            ("adversarial", 64, 32, 1),
-                            ("adversarial", 96, 48, 3),
-                            ("adversarial", 32, 16, 2, 2000)]
+# inside nowhere first, so the winners sit past slot 2,048), and at tiles
+# 8, 24 and 40, whose edge regions the kernel clamps.
+CULL_CASES = DEPTH_CASES + TILE_CASES + [
+    ("adversarial", 32, 16, 0), ("adversarial", 64, 32, 1),
+    ("adversarial", 96, 48, 3), ("adversarial", 32, 16, 2, 2000),
+    ("adversarial", 48, 24, 4), ("adversarial", 80, 40, 5)]
 
 
 def _cull_pack(case):
@@ -195,7 +247,8 @@ def test_depth_cull_is_conservative(case):
     pack, static = _cull_pack(case)
     keep, in_region = tdepth.cull_keep(pack, static)
     B, T = pack.shape[:2]
-    n = static.tile_px // tdepth.FWD_SUB
+    tp = static.tile_px
+    n = -(-tp // tdepth.FWD_SUB)
     assert keep.shape == (B, T, n, n, static.kf)
     px, py, _ = tdepth._pixel_coords(static, T, pack.device)
     fp = pack[..., None, None]
@@ -208,7 +261,7 @@ def test_depth_cull_is_conservative(case):
         hit = inside & (invz > 0)
         n_inside += int(hit.sum())
         kept = keep[..., k].repeat_interleave(sub, 2).repeat_interleave(
-            sub, 3)
+            sub, 3)[:, :, :tp, :tp]
         assert not bool((hit & ~kept).any()), (
             f"slot {k}: culled where it is inside")
         # The kernel's scan: each pixel sees only its sub-tile's survivors.
@@ -225,7 +278,7 @@ def test_depth_cull_is_conservative(case):
     assert n_inside <= work["pixel_slots"] < work["valid_pixel_slots"]
 
 
-@pytest.mark.parametrize("tp", (16, 32, 48, 64, 96, 128))
+@pytest.mark.parametrize("tp", (16, 32, 48, 64, 96, 128, 8, 24, 40, 12))
 def test_depth_fwd_work_of_a_face_covering_the_tile_is_dense(tp):
     """Faces that cover the whole tile survive every cull: the work counts
     every (pixel, valid slot) pair, as the dense count does."""
@@ -238,8 +291,9 @@ def test_depth_fwd_work_of_a_face_covering_the_tile_is_dense(tp):
     pack[:, :, :13, :n_faces] = face[:, None]
     work = tdepth.fwd_work(pack, static)
     n_valid = 4 * n_faces
-    assert work == {"region_tests": n_valid * (tp // tdepth.FWD_REGION) ** 2,
-                    "sub_tests": n_valid * (tp // tdepth.FWD_SUB) ** 2,
+    n_reg, n_sub = -(-tp // tdepth.FWD_REGION), -(-tp // tdepth.FWD_SUB)
+    assert work == {"region_tests": n_valid * n_reg ** 2,
+                    "sub_tests": n_valid * n_sub ** 2,
                     "pixel_slots": n_valid * tp * tp,
                     "valid_pixel_slots": n_valid * tp * tp}
     assert tdepth.fwd_work_ops(work) == (
@@ -251,10 +305,21 @@ def test_depth_fwd_work_of_a_face_covering_the_tile_is_dense(tp):
 
 
 def test_depth_cull_refuses_tiles_the_kernel_does_not_take():
-    for tp in (8, 24, 40):
-        static = tdepth.DepthStatic(tp, 2 * tp, 2, 4)
-        with pytest.raises(ValueError, match="multiple of 16"):
+    """The kernel takes every tile of at least one pixel: the replay of
+    its cull refuses only the others, and at tiles that are not a multiple
+    of its regions it gives ceil(tp / side) boxes a side."""
+    for tp in (0, -16):
+        static = tdepth.DepthStatic(tp, 32, 2, 4)
+        with pytest.raises(ValueError, match="positive number of pixels"):
             tdepth.cull_keep(torch.zeros((1, 4, 16, 4)), static)
+    for tp in (8, 24, 40, 9):
+        static = tdepth.DepthStatic(tp, 2 * tp, 2, 4)
+        keep, in_region = tdepth.cull_keep(torch.zeros((1, 4, 16, 4)),
+                                           static)
+        n_sub, n_reg = -(-tp // tdepth.FWD_SUB), -(-tp // tdepth.FWD_REGION)
+        assert keep.shape == (1, 4, n_sub, n_sub, 4)
+        assert in_region.shape == (1, 4, n_reg, n_reg, 4)
+        assert not bool(keep.any())  # no valid slot
 
 
 def _xla_settings(case):

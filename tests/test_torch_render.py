@@ -32,6 +32,12 @@ def test_topology_arrays_equal(mesh):
     assert tr.MeshTopology.from_faces(faces, device="cpu") is t  # cached
 
 
+# Tiles that are not a multiple of the shade kernel's 8-pixel groups, or
+# of the depth kernel's 16-pixel regions: the JAX kernel takes any tile
+# (homan_tpu/render/pallas_shade.py pix_shape), and so does the port's.
+TILE_CASES = [("object", 32, 8, 48), ("object", 48, 24, 64),
+              ("hand", 48, 24, 64)]
+
 _jax_prep = jax.jit(lambda v, topo, K, s: jr._pallas_prep(v, topo, K, s)[:3],
                     static_argnums=(3,))
 _jax_shade_fwd = jax.jit(jshade._shade_fwd, static_argnums=(2, 3))
@@ -56,7 +62,8 @@ def _pallas_fwd(case):
             [np.array(o).reshape(shape) for o in outs], outs)
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("case", CASES + TILE_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
 def test_shade_prep_matches_pallas_prep(case):
     verts, K, jtopo, ttopo, jset, tset = raster_case(*case)
     jseg, janc, jdem, jstatic, _, _ = _pallas_fwd(case)
@@ -72,7 +79,8 @@ def test_shade_prep_matches_pallas_prep(case):
     np.testing.assert_array_equal(t2n(tdem), jdem)
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("case", CASES + TILE_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
 def test_plain_shade_forward_matches_pallas(case):
     seg, anc, _, static, (jsil, jam, jrx, jry, jtc), _ = _pallas_fwd(case)
     sil, am, rx, ry, tc = (t2n(x) for x in tshade.shade_fwd(
