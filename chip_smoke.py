@@ -71,6 +71,22 @@ Phases, each fatal on failure:
        no face-budget overflow at the initial or the final poses;
      then small fits of each path on the card and on the CPU (plain
      versions) from the same inputs must agree.
+  4. stage B, the object-pose search (bench.py bench_stageb): the clip
+     built by the port (10 frames, 512^2 masks from render_full_mask,
+     evidence at 256^2); the contour-edge demand of frame 0's 500 initial
+     candidates at the refinement's 128^2 and the rescore's 256^2 (tile
+     128) sizes Ke (x1.3, next bucket; the bench's 64 drops edges); the
+     search at full width (500 candidates, 35 coarse and 50 refinement
+     steps, chunks of 125) twice, counts set to 0 just before each run and
+     read just after, which must equal the path's own count (shade_fwd
+     with residuals 640, forward-only 24, shade_bwd 640), best IoU >= 0.9;
+     the demand of every frame's final candidates at both sizes within
+     Ke; one parallel_frames search; the shade pair held and timed at
+     stage B's packs (coarse B 125 and B 500, refinement B 125, at 128^2;
+     the rescore's B 125 at 256^2, forward-only); a 10-step profiler window
+     of frame 0's refinement; a small search (3 frames, 24 candidates, 5
+     steps, 64^2) on the card and on the CPU from the same injected
+     rotations: poses within 2e-3, best IoU within 1e-3.
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -96,6 +112,11 @@ FRAMES2, ITERS2, ITERS3, GRID, DEPTH_TILE = 10, 400, 100, 32, 64
 VOX_GRIDS = (16, 32, 64)  # every grid size the voxelizer takes
 LW_INTER = {"lw_collision": 1e-3, "lw_contact": 1.0}
 LW_DEPTH = {"lw_depth": 1.0}
+# Stage B (bench.py bench_stageb): 10 frames, 500 candidates, 50 steps a
+# frame after 35 coarse ones, 125 candidates a chunk, 256^2 evidence at tile
+# 128, refined at 128^2; the bench's edges_per_tile.
+FRAMES_B, INITS_B, ITERS_B, COARSE_B, CHUNK_B, KE_BENCH_B = (
+    10, 500, 50, 35, 125, 64)
 # Edge-slot buckets and headroom of the JAX package's auto_edge_settings
 # (homan_tpu/render/rasterizer.py:949,952).
 EDGE_BUCKETS = (48, 64, 96, 128, 192, 256, 384, 512)
@@ -233,7 +254,8 @@ def bounds(seg_pack, anchors, static):
     and the other four residuals and the cotangent of the pixels that
     picked a slot (only they reach gseg) read, gseg written; operations
     per picked pixel. Its dense count beside it: all six arrays of every
-    pixel read (the first design's bound).
+    pixel read (the first design's bound). Last, the forward-only mode's:
+    the forward's operations, sil alone written.
     """
     from homan_tpu_torch.render import shade
     B, T = seg_pack.shape[:2]
@@ -248,8 +270,9 @@ def bounds(seg_pack, anchors, static):
     bwd = _bound(px * 4 + picked * 20 + seg_bytes,
                  shade.BWD_OPS_PER_PIXEL * picked)
     bwd_dense = _bound(px * 24 + seg_bytes, shade.BWD_OPS_PER_PIXEL * px)
+    fwd_only = _bound(seg_bytes + px * 4 + px * 4, fwd_ops)
     return (_bound(fwd_bytes, fwd_ops), bwd, share, evaluated, bwd_dense,
-            picked / px)
+            picked / px, fwd_only)
 
 
 def _bound(n_bytes, n_ops):
@@ -454,13 +477,14 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
           f"{name}: gseg err {g_err} > 3e-3 of max {g_scale}")
     check(torch.equal(g_k, shade.shade_bwd(k_out, gcot, static)),
           f"{name}: backward kernel is not deterministic")
-    (fb, fby), (bb, bby), fill, evaluated, (bd, _), picked = bounds(
-        seg_pack, anchors, static)
+    (fb, fby), (bb, bby), fill, evaluated, (bd, _), picked, (ob, oby) = \
+        bounds(seg_pack, anchors, static)
     scratch = shade_bwd_scratch_bytes(torch, k_out, gcot, static, g_k)
     out = {"bit_equal": all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
            "sil_err": sil_err, "argmin_agree": agree, "res_err": res_err,
            "gseg_err": g_err, "gseg_max": g_scale, "fwd_bound_ms": fb,
-           "fwd_bound_by": fby, "bwd_bound_ms": bb, "bwd_bound_by": bby,
+           "fwd_bound_by": fby, "fwd_only_bound_ms": ob,
+           "fwd_only_bound_by": oby, "bwd_bound_ms": bb, "bwd_bound_by": bby,
            "bwd_dense_bound_ms": bd, "picked_share": picked,
            "bwd_scratch_bytes": scratch,
            "valid_slot_share": fill, "evaluated_share": evaluated}
@@ -818,8 +842,8 @@ def size_faces(demand, n_faces):
 def _counter_modules():
     from homan_tpu_torch.interactions import voxelize
     from homan_tpu_torch.render import depth, shade
-    return {"shade_fwd": shade, "shade_bwd": shade, "depth_fwd": depth,
-            "depth_bwd": depth, "voxelize": voxelize}
+    return {"shade_fwd": shade, "shade_fwd_only": shade, "shade_bwd": shade,
+            "depth_fwd": depth, "depth_bwd": depth, "voxelize": voxelize}
 
 
 def reset_counts():
@@ -849,19 +873,17 @@ def run_fit(torch, joint, scene, settings, iters, device, **fit_kw):
     return final, {k: v.cpu() for k, v in hist.items()}, wall, read_counts()
 
 
-def profile_steps(torch, joint, scene, settings, iters, label, **fit_kw):
-    """torch.profiler over `iters` fit steps: wall and device-busy time per
-    step, kernel launches per step, and the top device kernels."""
+def profile_window(torch, run, steps, label):
+    """torch.profiler around run(), which takes `steps` steps: wall and
+    device-busy time per step, the device's idle share, kernel launches per
+    step, and the top device kernels."""
     from torch.profiler import ProfilerActivity, profile
     cuda_t = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        joint.optimize_hand_object(
-            fit_kw.pop("state", scene.init_state), scene.consts,
-            fit_kw.pop("cfg", scene.cfg), num_iterations=iters,
-            roi_settings=settings, device="cuda", **fit_kw)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -871,15 +893,23 @@ def profile_steps(torch, joint, scene, settings, iters, label, **fit_kw):
     launches = sum(e.count for e in prof.key_averages()
                    if e.key.startswith("cudaLaunchKernel"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"steps": iters, "wall_ms_per_step": wall / iters * 1e3,
-           "device_busy_ms_per_step": busy_us / iters / 1e3,
+    out = {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+           "device_busy_ms_per_step": busy_us / steps / 1e3,
            "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
-           "launch_calls_per_step": launches / iters,
+           "launch_calls_per_step": launches / steps,
            "top_kernels_us_per_step": [
-               [e.key[:60], e.self_device_time_total / iters] for e in top]}
+               [e.key[:60], e.self_device_time_total / steps] for e in top]}
     print(f"profile [{label}] (torch.profiler on, adds host time): "
           + json.dumps(out), flush=True)
     return out
+
+
+def profile_steps(torch, joint, scene, settings, iters, label, **fit_kw):
+    """profile_window over `iters` steps of a stage-C fit."""
+    return profile_window(torch, lambda: joint.optimize_hand_object(
+        fit_kw.pop("state", scene.init_state), scene.consts,
+        fit_kw.pop("cfg", scene.cfg), num_iterations=iters,
+        roi_settings=settings, device="cuda", **fit_kw), iters, label)
 
 
 def check_history(hist, label, iou=False):
@@ -965,6 +995,291 @@ def overlap_state(scene):
     th = gt.translations_hand
     t = th[::scene.cfg.hand_nb] + th.new_tensor([0.03, 0.0, -0.06])
     return dataclasses.replace(gt, translations_object=t)
+
+
+def stage_b_clip(frames, image_size, rend, device):
+    """bench.py bench_stageb's clip, built by the port alone
+    (bench.py:103-128, :140-160): the 1280-face bumpy potato turning 0.04
+    rad a frame about z and drifting in x, focal 0.9 x image_size; full
+    masks by render_full_mask, evidence by build_object_mask_info at
+    `rend`. Returns vertices, faces, annotations and Ks."""
+    from homan_tpu_torch.core.meshes import bumpy_potato
+    from homan_tpu_torch.frontend.evidence import build_object_mask_info
+    from homan_tpu_torch.frontend.gtevidence import (mask_to_bbox,
+                                                     render_full_mask)
+    v, f = bumpy_potato(3, 0.08, seed=0)
+    K = np.array([[image_size * 0.9, 0, image_size / 2],
+                  [0, image_size * 0.9, image_size / 2], [0, 0, 1.0]],
+                 np.float32)
+    verts = []
+    for t in range(frames):
+        a = 0.04 * t
+        Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                       [0, 0, 1]], np.float32)
+        verts.append(v @ Rz.T + np.array([0.02 + 0.002 * t, -0.01, 0.55],
+                                         np.float32))
+    masks = render_full_mask(np.stack(verts), f,
+                             np.tile(K[None], (frames, 1, 1)), image_size,
+                             device=device)
+    ann = []
+    for m in masks:
+        info = build_object_mask_info(m, mask_to_bbox(m), None, rend)
+        info["full_mask"] = m.astype(np.float32)
+        ann.append(info)
+    return v, f, ann, [K] * frames
+
+
+def stage_b_launches(frames, inits, iters, coarse, chunk, prune, rescore,
+                     parallel):
+    """Shade launches of one find_optimal_poses call: {"shade_fwd": with
+    residuals plus forward-only, "shade_fwd_only", "shade_bwd"}. A
+    refinement of n candidates in chunks of c runs ceil(n / c) chunks a
+    step with a gradient, then each chunk once without (its final
+    evaluation); the rescore runs its chunks once without."""
+    def fit(n, c, steps):
+        k = -(-n // c)
+        return k * steps, k
+
+    def chunks(n, c):
+        return -(-n // c)
+
+    runs = []  # (residual launches, forward-only launches)
+    kept = inits
+    if prune is not None and prune < inits:
+        runs.append(fit(inits, chunk, coarse))
+        kept = prune
+    rest = frames - 1 if parallel and frames > 1 else 0
+    runs += [fit(kept, chunk, iters)] * (frames - rest)
+    if rest:
+        runs.append(fit(rest * kept, min(3 * chunk, rest * kept), iters))
+    if rescore:
+        runs.append((0, chunks(frames * kept, chunk)))
+    res = sum(r for r, _ in runs)
+    only = sum(o for _, o in runs)
+    return {"shade_fwd": res + only, "shade_fwd_only": only,
+            "shade_bwd": res, "depth_fwd": 0, "depth_bwd": 0,
+            "voxelize": 0}
+
+
+def posed(torch, geo, vertices, rot, trans):
+    """(C, V, 3) candidate vertices from (C, 3, 3) or (C, 3, 2) rotations."""
+    if rot.shape[-1] == 2:
+        rot = geo.rot6d_to_matrix(rot)
+    return torch.einsum("vj,cjk->cvk", vertices, rot) + trans
+
+
+def edge_demand(torch, R, verts, topo, K, settings, chunk=125):
+    """check_edge_budget of the renders (its max demand against the
+    capacity) and each render's own demand (shade_prep's e_demand), in
+    chunks."""
+    budget = R.check_edge_budget(verts, topo, K, settings)
+    per = []
+    with torch.no_grad():
+        for s in range(0, verts.shape[0], chunk):
+            per.append(R.shade_prep(verts[s:s + chunk], topo,
+                                    K[s:s + chunk], settings)[2])
+    per = torch.cat(per)
+    check(int(per.max()) == budget["max_demand"],
+          f"shade_prep's demand {int(per.max())} differs from "
+          f"check_edge_budget's {budget['max_demand']}")
+    return budget, per
+
+
+def stage_b_phase(torch, R):
+    """The stage-B phase: bench.py bench_stageb's search at full width,
+    twice, then in parallel_frames mode; its edge budget; the shade pair at
+    its packs; a profiled refinement window; a small search on the card
+    against the CPU. Returns (result dict, kernel rows by pack)."""
+    import contextlib
+
+    from homan_tpu_torch.core import geometry as geo
+    from homan_tpu_torch.fit import poseinit
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    v_np, f_np, ann, Ks = stage_b_clip(FRAMES_B, 2 * REND, REND, "cuda")
+    torch.cuda.synchronize()
+    print(f"stage B clip: {FRAMES_B} frames, {2 * REND}^2 masks, evidence "
+          f"at {REND}^2 in {time.perf_counter() - t0:.2f} s", flush=True)
+    vertices = torch.from_numpy(v_np).to(dev)
+    topo = R.MeshTopology.from_faces(f_np, device=dev)
+    refine_size = poseinit._refine_settings(
+        R.RasterSettings(REND, tile_px=TILE), 0.5).image_size
+    wide = {"refine": R.RasterSettings(refine_size, tile_px=TILE,
+                                       edges_per_tile=1 << 20),
+            "rescore": R.RasterSettings(REND, tile_px=TILE,
+                                        edges_per_tile=1 << 20)}
+
+    # Edge budget at the initial candidates of frame 0, at both
+    # resolutions; Ke sized from the larger demand (x1.3, next bucket).
+    rot0 = geo.random_rotations(INITS_B, torch.Generator().manual_seed(0),
+                                device=dev)
+    _, _, _, K_roi0 = poseinit._frame_evidence(ann[0], Ks[0], REND, dev)
+    r6, tr0 = poseinit._chain_init(vertices, rot0, ann[0]["bbox"],
+                                   torch.from_numpy(Ks[0]).to(dev))
+    init_verts = posed(torch, geo, vertices, rot0, tr0)
+    K_init = K_roi0.expand(INITS_B, 3, 3)
+    demand = {}
+    for res, st in wide.items():
+        b, per = edge_demand(torch, R, init_verts, topo, K_init, st)
+        demand[res] = {"initial_max": b["max_demand"],
+                       "initial_median": float(per.float().median()),
+                       "initial_share_over_bench_ke": float(
+                           (per > KE_BENCH_B).float().mean())}
+    need = int(np.ceil(max(d["initial_max"] for d in demand.values())
+                       * EDGE_SAFETY))
+    ke_b = min(b for b in EDGE_BUCKETS if b >= need)
+    settings = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=ke_b)
+    print(f"stage B edge budget at frame 0's {INITS_B} initial candidates: "
+          + json.dumps(demand) + f"; bench Ke {KE_BENCH_B}; the search runs "
+          f"Ke {ke_b}", flush=True)
+
+    # The search at full width, twice. The rescore's inputs (every frame's
+    # final candidates) are kept for the budget check and the packs.
+    kept = {}
+    score = poseinit._score_candidates
+
+    def keep_score(*args, **kw):
+        kept["args"] = args
+        kept["group"] = kw["group"]
+        return score(*args, **kw)
+
+    search_kw = dict(num_initializations=INITS_B, num_iterations=ITERS_B,
+                     rend_size=REND, settings=settings, seed=0,
+                     prune_to="auto", coarse_iterations=COARSE_B,
+                     refine_scale=0.5, candidate_chunk=CHUNK_B, device="cuda")
+    prune = max(INITS_B // 4, 16)
+
+    def search(label, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = poseinit.find_optimal_poses(
+            v_np, f_np, ann, Ks, (2 * REND, 2 * REND),
+            **dict(search_kw, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        expect = stage_b_launches(FRAMES_B, INITS_B, ITERS_B, COARSE_B,
+                                  CHUNK_B, prune, True,
+                                  kw.get("parallel_frames", False))
+        best = res[0]["best_iou"]
+        print(f"stage B {label}: {wall:.3f} s, best IoU {best:.6f}; "
+              f"launches " + json.dumps(counts), flush=True)
+        check(counts == expect, f"stage B {label}: launches {counts}, the "
+              f"path's count is {expect}")
+        check(best >= 0.9, f"stage B {label}: best IoU {best} < 0.9")
+        check(len(res) == FRAMES_B and all(
+            bool(torch.isfinite(r["rotations"]).all()) for r in res),
+            f"stage B {label}: non-finite or missing poses")
+        return wall, best, counts
+
+    poseinit._score_candidates = keep_score
+    try:
+        walls, bests = [], []
+        for i in range(2):
+            w, b, counts = search(f"run {i + 1}")
+            walls.append(w)
+            bests.append(b)
+    finally:
+        poseinit._score_candidates = score
+    wall_p, best_p, counts_p = search("parallel_frames",
+                                      parallel_frames=True)
+
+    # The budget at every frame's final candidates, at both resolutions.
+    _, _, _, _, ev_K, r6_all, t_all, _ = kept["args"]
+    C = kept["group"]
+    final_verts = posed(torch, geo, vertices, r6_all, t_all)
+    K_all = ev_K.repeat_interleave(C, 0)
+    for res, st in wide.items():
+        b, _ = edge_demand(torch, R, final_verts, topo, K_all, st)
+        demand[res]["final_max"] = b["max_demand"]
+        demand[res]["capacity"] = ke_b
+        check(b["max_demand"] <= ke_b and demand[res]["initial_max"] <= ke_b,
+              f"stage B: {res} renders overflow Ke {ke_b}: {demand[res]}")
+    print("stage B edge demand against capacity: " + json.dumps(demand),
+          flush=True)
+
+    # The shade pair at stage B's packs.
+    st_ref = R.RasterSettings(refine_size, tile_px=TILE, edges_per_tile=ke_b)
+
+    def pack(verts, K, st):
+        with torch.no_grad():
+            seg, anc, _, static = R.shade_prep(verts, topo, K, st)
+        return seg, anc, static
+
+    packs = {
+        "stage_b_coarse": pack(init_verts[:CHUNK_B], K_init[:CHUNK_B],
+                               st_ref),
+        "stage_b_coarse_b500": pack(init_verts, K_init, st_ref),
+        "stage_b_refine": pack(final_verts[:C], K_all[:C], st_ref),
+        "stage_b_rescore": pack(final_verts[:C], K_all[:C], settings),
+    }
+    rows = {name: compare_kernels(torch, name, *p, timed=True)
+            for name, p in packs.items()}
+
+    # A 10-step profiler window of frame 0's refinement.
+    mask, _, _, K_roi = poseinit._frame_evidence(ann[0], Ks[0], REND, dev)
+    ref_r, keep_r, edt_r = poseinit._refine_evidence(mask, refine_size, 0.0,
+                                                     dev)
+    prof = profile_window(torch, lambda: poseinit._fit_candidates(
+        vertices, topo, ref_r, keep_r, edt_r, K_roi, r6_all[:C],
+        t_all[:C], st_ref, num_iterations=10, candidate_chunk=CHUNK_B),
+        10, "stage B refinement")
+
+    out = {"frames": FRAMES_B, "inits": INITS_B, "iters": ITERS_B,
+           "coarse_iters": COARSE_B, "rend": REND, "refine": refine_size,
+           "tile": TILE, "ke": ke_b, "edge_demand": demand,
+           "first_wall_s": walls[0], "second_wall_s": walls[1],
+           "best_iou": bests, "launches": counts,
+           "parallel_frames": {"wall_s": wall_p, "best_iou": best_p,
+                               "launches": counts_p},
+           "profiled_refinement": prof}
+
+    # The card against the CPU: a small search with the same injected
+    # rotations on both sides.
+    @contextlib.contextmanager
+    def injected(rots):
+        draw = geo.random_rotations
+        geo.random_rotations = (
+            lambda n, generator=None, upright=False, device=None:
+            rots[:n].to(device))
+        try:
+            yield
+        finally:
+            geo.random_rotations = draw
+
+    sv, sf, s_ann, s_Ks = stage_b_clip(3, 128, 64, "cpu")
+    u = np.random.RandomState(1).uniform(size=(3, 24)).astype(np.float32)
+    rots = geo.arvo_rotations(torch.from_numpy(u))
+    small = {}
+    with injected(rots):
+        for d in ("cuda", "cpu"):
+            reset_counts()
+            small[d] = poseinit.find_optimal_poses(
+                sv, sf, s_ann, s_Ks, (128, 128), num_initializations=24,
+                num_iterations=5, rend_size=64,
+                settings=R.RasterSettings(64, tile_px=32,
+                                          edges_per_tile=128),
+                device=d)
+            small[d + "_counts"] = read_counts()
+    expect = stage_b_launches(3, 24, 5, 0, CHUNK_B, None, False, False)
+    check(small["cuda_counts"] == expect, f"small stage B: card "
+          f"launches {small['cuda_counts']}, expected {expect}")
+    check(not any(small["cpu_counts"].values()),
+          f"small stage B: CPU run launched {small['cpu_counts']}")
+    err = {k: max(float((g[k].cpu() - c[k]).abs().max())
+                  for g, c in zip(small["cuda"], small["cpu"]))
+           for k in ("rotations", "translations")}
+    err["best_iou"] = abs(small["cuda"][0]["best_iou"]
+                          - small["cpu"][0]["best_iou"])
+    print("small stage B, card vs CPU plain path: " + json.dumps(err),
+          flush=True)
+    check(err["rotations"] <= 2e-3 and err["translations"] <= 2e-3,
+          f"small stage B: card and CPU poses differ: {err}")
+    check(err["best_iou"] <= 1e-3, f"small stage B: best IoU differs: "
+          f"{err}")
+    out["card_vs_cpu"] = err
+    return out, rows
 
 
 def main(argv=None) -> int:
@@ -1170,6 +1485,9 @@ def main(argv=None) -> int:
                    full_settings=R.RasterSettings(128, tile_px=32,
                                                   faces_per_tile=2048))
 
+    # 4. Stage B: the object-pose search (bench.py bench_stageb) ------------
+    stage_b, b_rows = stage_b_phase(torch, R)
+
     # Result lines ------------------------------------------------------------
     h = results["fit"]
 
@@ -1243,6 +1561,30 @@ def main(argv=None) -> int:
          "bound_ms": mean2("bound_ms", v_rows),
          "bound_by": v_rows[0]["bound_by"], "library_ms": None},
     ]
+    # Stage B's packs, under their own keys: the coarse and refinement
+    # renders (B 125, and the coarse at B 500 in one launch; 128^2, one
+    # tile) with residuals and the backward, the rescore's (B 125, 256^2,
+    # four tiles) forward-only.
+    for k in kernels[:2]:
+        fwd = k["name"] == "shade_fwd"
+        k["stage_b"] = {"launches": stage_b["launches"][k["name"]]}
+        if fwd:
+            k["stage_b"]["launches_forward_only"] = stage_b["launches"][
+                "shade_fwd_only"]
+        for name, r in b_rows.items():
+            only = name == "stage_b_rescore"
+            if only and not fwd:
+                continue
+            pre = "fwd_only_" if only else ("fwd_" if fwd else "bwd_")
+            lib = r["bwd_library"]
+            k["stage_b"][name] = {
+                "ms": r[pre + "ms"], "device_ms": r[pre + "device_ms"],
+                "plain_ms": r["fwd_plain_ms" if fwd else "bwd_plain_ms"],
+                "bound_ms": r[pre + "bound_ms"],
+                "bound_by": r[pre + "bound_by"],
+                "max_abs_err": r["sil_err" if fwd else "gseg_err"],
+                "library_ms": None if fwd else min(
+                    lib["library_index_add_ms"], lib["library_einsum_ms"])}
     fits = {
         "fit": {"frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
                 "ke": ke_fit, "first_wall_s": walls1[0],
@@ -1259,12 +1601,15 @@ def main(argv=None) -> int:
             "face_demand": face_demand, "ke": ke2,
             "first_wall_s": walls3[0], "second_wall_s": walls3[1],
             "ms_per_step": walls3[1] / ITERS3 * 1e3, "profiled": step3},
+        "stage_b": stage_b,
     }
-    for k in kernels:
+    rows = [(k["name"], k) for k in kernels] + [
+        (f"{k['name']} {name}", r) for k in kernels
+        for name, r in k.get("stage_b", {}).items() if isinstance(r, dict)]
+    for label, r in rows:
         for key in ("ms", "device_ms"):
-            check(k[key] >= k["bound_ms"], f"{k['name']} reads {key} "
-                  f"{k[key]}, below its bound {k['bound_ms']} ms: the bound "
-                  f"is wrong")
+            check(r[key] >= r["bound_ms"], f"{label} reads {key} {r[key]}, "
+                  f"below its bound {r['bound_ms']} ms: the bound is wrong")
     print(json.dumps(fits), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

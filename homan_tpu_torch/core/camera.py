@@ -7,6 +7,7 @@ interaction terms only steer the rigid transform.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -83,3 +84,21 @@ def normalize_K(K: torch.Tensor, size) -> torch.Tensor:
     scale = torch.ones((3, 1), dtype=K.dtype, device=K.device)
     scale[:2, 0] = 1.0 / size
     return K * scale
+
+
+def get_K_crop_resize_np(K, boxes_xyxy, target_size: int):
+    """Pixel intrinsics (N, 3, 3) of crops `boxes_xyxy` (N, 4) resized to
+    target_size^2, in numpy for the host-side evidence
+    (homan_tpu/core/camera.py:166)."""
+    K = np.asarray(K, np.float32).copy()
+    boxes = np.asarray(boxes_xyxy, np.float32)
+    sx = target_size / np.maximum(boxes[:, 2] - boxes[:, 0], 1e-9)
+    sy = target_size / np.maximum(boxes[:, 3] - boxes[:, 1], 1e-9)
+    out = np.zeros(boxes.shape[:1] + (3, 3), np.float32)
+    out[:, 0, 0] = K[:, 0, 0] * sx
+    out[:, 0, 1] = K[:, 0, 1] * sx
+    out[:, 0, 2] = (K[:, 0, 2] - boxes[:, 0]) * sx
+    out[:, 1, 1] = K[:, 1, 1] * sy
+    out[:, 1, 2] = (K[:, 1, 2] - boxes[:, 1]) * sy
+    out[:, 2, 2] = 1.0
+    return out

@@ -1,4 +1,5 @@
-"""Rotation representations (counterpart of homan_tpu/core/geometry.py:18-75).
+"""Rotation representations and sampling (counterpart of
+homan_tpu/core/geometry.py:18-75 and :100-160).
 
 Conventions as in the JAX package: rotations act on ROW vectors from the
 right, `v_rot = v @ R`; `rodrigues` returns column-convention matrices, as
@@ -55,3 +56,67 @@ def rodrigues(axis_angle: torch.Tensor) -> torch.Tensor:
     t = theta[..., None]
     eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
     return eye + torch.sin(t) * K + (1.0 - torch.cos(t)) * (K @ K)
+
+
+def euler_angles_to_matrix(angles: torch.Tensor,
+                           convention: str) -> torch.Tensor:
+    """Euler angles (..., len(convention)) -> rotation matrices, intrinsic
+    (homan_tpu/core/geometry.py:100)."""
+
+    def axis_rot(axis: str, a: torch.Tensor) -> torch.Tensor:
+        c, s = torch.cos(a), torch.sin(a)
+        one, zero = torch.ones_like(a), torch.zeros_like(a)
+        if axis == "X":
+            rows = [(one, zero, zero), (zero, c, -s), (zero, s, c)]
+        elif axis == "Y":
+            rows = [(c, zero, s), (zero, one, zero), (-s, zero, c)]
+        elif axis == "Z":
+            rows = [(c, -s, zero), (s, c, zero), (zero, zero, one)]
+        else:
+            raise ValueError(f"bad axis {axis}")
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    R = axis_rot(convention[0], angles[..., 0])
+    for i, axis in enumerate(convention[1:], start=1):
+        R = R @ axis_rot(axis, angles[..., i])
+    return R
+
+
+def arvo_rotations(x: torch.Tensor) -> torch.Tensor:
+    """Arvo's uniform SO(3) construction (homan_tpu/core/geometry.py:137-160)
+    from (3, n) uniforms in [0, 1): a rotation about z composed with a
+    Householder reflection, negated. Returns (n, 3, 3)."""
+    x1, x2, x3 = x[0], x[1], x[2]
+    tau = 2 * torch.pi
+    c1, s1 = torch.cos(tau * x1), torch.sin(tau * x1)
+    zero, one = torch.zeros_like(x1), torch.ones_like(x1)
+    R = torch.stack([torch.stack([c1, s1, zero], dim=1),
+                     torch.stack([-s1, c1, zero], dim=1),
+                     torch.stack([zero, zero, one], dim=1)], dim=1)
+    v = torch.stack([torch.cos(tau * x2) * torch.sqrt(x3),
+                     torch.sin(tau * x2) * torch.sqrt(x3),
+                     torch.sqrt(1.0 - x3)], dim=1)
+    H = (torch.eye(3, dtype=x.dtype, device=x.device)[None]
+         - 2.0 * v[:, :, None] * v[:, None, :])
+    return -(H @ R)
+
+
+def random_rotations(n: int, generator: torch.Generator | None = None,
+                     upright: bool = False, device=None) -> torch.Tensor:
+    """n rotation matrices (n, 3, 3), uniform over SO(3) by default
+    (homan_tpu/core/geometry.py:122).
+
+    The uniforms are drawn on the CPU from `generator` (a CPU generator;
+    torch's default one when None), so a seed gives the same rotations on
+    every device; the result is placed on `device`. upright: yaw in
+    [0, 2 pi), pitch in [-pi/6, pi/6), roll in [-pi/12, pi/12), "YXZ".
+    """
+    u = torch.rand((3, n), generator=generator, dtype=torch.float32)
+    if upright:
+        lo = torch.tensor([0.0, -torch.pi / 6, -torch.pi / 12])
+        hi = torch.tensor([2 * torch.pi, torch.pi / 6, torch.pi / 12])
+        angles = (lo[:, None] + u * (hi - lo)[:, None]).T
+        R = euler_angles_to_matrix(angles, "YXZ")
+    else:
+        R = arvo_rotations(u)
+    return R.to(device) if device is not None else R

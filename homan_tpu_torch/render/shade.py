@@ -17,8 +17,9 @@ are built by homan_tpu_torch/_build.py.
             4-7 and the anchors get none).
 
 Dispatch is by device: a CPU tensor runs the plain PyTorch version below, a
-CUDA tensor launches the kernel (or raises). `shade_fwd_launches` and
-`shade_bwd_launches` count kernel launches only.
+CUDA tensor launches the kernel (or raises). `shade_fwd_launches`,
+`shade_fwd_only_launches` and `shade_bwd_launches` count kernel launches
+only.
 """
 from __future__ import annotations
 
@@ -27,8 +28,11 @@ from typing import NamedTuple
 
 import torch
 
-# Launch counts of the CUDA kernels (the plain versions do not count).
+# Launch counts of the CUDA kernels (the plain versions do not count);
+# shade_fwd_only_launches counts the forward's launches in its forward-only
+# mode, which shade_fwd_launches includes.
 shade_fwd_launches = 0
+shade_fwd_only_launches = 0
 shade_bwd_launches = 0
 
 # Pixels per strip of the backward (csrc/shade.cu kStripPx): one block of
@@ -307,7 +311,7 @@ def shade_fwd(seg_pack, anchors, static: ShadeStatic,
     if seg_pack.device.type == "cpu":
         return shade_fwd_plain(seg_pack, anchors, static, want_residuals)
     _require_cuda(seg_pack)
-    global shade_fwd_launches
+    global shade_fwd_launches, shade_fwd_only_launches
     B, T = seg_pack.shape[:2]
     tp, ke = static.tile_px, static.ke
     dev = seg_pack.device
@@ -335,6 +339,8 @@ def shade_fwd(seg_pack, anchors, static: ShadeStatic,
     if rc != 0:
         raise RuntimeError(f"shade_fwd kernel launch failed: CUDA error {rc}")
     shade_fwd_launches += 1
+    if not want_residuals:
+        shade_fwd_only_launches += 1
     return (sil, amin, rx, ry, tc) if want_residuals else (sil,)
 
 

@@ -301,3 +301,104 @@ def test_voxelizer_kernel_refuses_other_grids(cuda):
                                torch.from_numpy(faces).to(cuda))
     with pytest.raises(ValueError, match="grid sizes"):
         tvox.voxelize_pack(pack, 8)
+
+
+def _stage_b_clip(frames, image_size, rend, device):
+    """bench.py bench_stageb's clip, built by the port: the 1280-face bumpy
+    potato turning 0.04 rad a frame about z; masks by render_full_mask,
+    evidence by build_object_mask_info at `rend`."""
+    from homan_tpu_torch.frontend.evidence import build_object_mask_info
+    from homan_tpu_torch.frontend.gtevidence import (mask_to_bbox,
+                                                     render_full_mask)
+    v, f = bumpy_potato(3, 0.08, seed=0)
+    K = np.array([[image_size * 0.9, 0, image_size / 2],
+                  [0, image_size * 0.9, image_size / 2], [0, 0, 1.0]],
+                 np.float32)
+    verts = []
+    for t in range(frames):
+        a = 0.04 * t
+        Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                       [0, 0, 1]], np.float32)
+        verts.append(v @ Rz.T + np.array([0.02 + 0.002 * t, -0.01, 0.55],
+                                         np.float32))
+    masks = render_full_mask(np.stack(verts), f, np.tile(K[None],
+                                                         (frames, 1, 1)),
+                             image_size, device=device)
+    ann = []
+    for m in masks:
+        info = build_object_mask_info(m, mask_to_bbox(m), None, rend)
+        info["full_mask"] = m.astype(np.float32)
+        ann.append(info)
+    return v, f, ann, [K] * frames
+
+
+def _stage_b_pack(device, B, S, tp, ke):
+    """The shade pack of B initial stage-B candidates of frame 0 (random
+    rotations, auto-depth translations) at S^2, tile tp, Ke slots."""
+    from homan_tpu_torch.core import geometry as tgeo
+    from homan_tpu_torch.fit import poseinit as tpose
+    v, f, ann, Ks = _stage_b_clip(1, 512, 256, device)
+    _, _, _, K_roi = tpose._frame_evidence(ann[0], Ks[0], 256, device)
+    R = tgeo.random_rotations(B, torch.Generator().manual_seed(0),
+                              device=device)
+    verts = torch.from_numpy(v).to(device)
+    r6, trans = tpose._chain_init(verts, R, ann[0]["bbox"],
+                                  torch.from_numpy(Ks[0]).to(device))
+    with torch.no_grad():
+        posed = torch.einsum("vj,cjk->cvk", verts, R) + trans
+        seg, anc, _, static = tr.shade_prep(
+            posed, tr.MeshTopology.from_faces(f, device=device),
+            K_roi.expand(B, 3, 3), tr.RasterSettings(S, tile_px=tp,
+                                                     edges_per_tile=ke))
+    return seg, anc, static
+
+
+# Stage B's shade packs (bench.py bench_stageb): the coarse and refinement
+# renders at 128^2, one 128-pixel tile, 125 candidates a chunk (and all 500
+# in one launch); the rescore's forward-only renders at 256^2, four tiles.
+@pytest.mark.parametrize("B,S,ke", [(125, 128, 64), (125, 128, 128),
+                                    (500, 128, 128), (125, 256, 128)])
+def test_shade_kernels_at_stage_b_packs_match_plain(cuda, B, S, ke):
+    seg, anc, static = _stage_b_pack(cuda, B, S, 128, ke)
+    k = shade.shade_fwd(seg, anc, static, want_residuals=True)
+    only = shade.shade_fwd(seg, anc, static, want_residuals=False)[0]
+    p = shade.shade_fwd_plain(seg, anc, static, True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert torch.equal(only, k[0])
+    assert bool((k[0] > 0.5).any())
+    if S == 256:  # the rescore renders without a gradient
+        return
+    gcot = torch.randn(k[0].shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    g_k = shade.shade_bwd(k, gcot, static)
+    g_p = shade.shade_bwd_plain(p, gcot, static)
+    scale = g_p.abs().max().item()
+    assert scale > 0
+    assert (g_k - g_p).abs().max().item() <= 3e-3 * scale
+    assert torch.equal(g_k, shade.shade_bwd(k, gcot, static))
+
+
+def test_stage_b_search_on_card_matches_cpu(cuda):
+    """A small search on the card and on the CPU (the plain versions) from
+    the same inputs; the rotations are drawn on the CPU either way. Each
+    frame's selected pose within 2e-3, best IoU within 1e-3; the card's
+    renders go through the kernels."""
+    from homan_tpu_torch.fit import poseinit as tpose
+    v, f, ann, Ks = _stage_b_clip(3, 128, 64, cuda)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        n0, m0 = shade.shade_fwd_launches, shade.shade_bwd_launches
+        out[dev.type] = tpose.find_optimal_poses(
+            v, f, ann, Ks, (128, 128), num_initializations=24,
+            num_iterations=5, rend_size=64,
+            settings=tr.RasterSettings(64, tile_px=32, edges_per_tile=128),
+            device=dev)
+        launched = (shade.shade_fwd_launches - n0,
+                    shade.shade_bwd_launches - m0)
+        # 3 frames x 5 steps with a gradient, and 3 final evaluations
+        assert launched == ((18, 15) if dev.type == "cuda" else (0, 0))
+    for c, g in zip(out["cpu"], out["cuda"]):
+        for k in ("rotations", "translations"):
+            assert g[k].device.type == "cuda"
+            assert (g[k].cpu() - c[k]).abs().max().item() <= 2e-3
+    assert abs(out["cuda"][0]["best_iou"] - out["cpu"][0]["best_iou"]) <= 1e-3

@@ -33,6 +33,34 @@ print("LOADED", bad)
 """
 
 
+_STAGE_B_SCRIPT = """
+import sys
+import numpy as np
+import homan_tpu_torch
+from homan_tpu_torch.core.meshes import bumpy_potato
+from homan_tpu_torch.fit.poseinit import find_optimal_poses
+from homan_tpu_torch.frontend.evidence import build_object_mask_info
+from homan_tpu_torch.frontend.gtevidence import mask_to_bbox, render_full_mask
+from homan_tpu_torch.render import RasterSettings
+
+v, f = bumpy_potato(1, 0.08, seed=0)
+K = np.array([[115.2, 0, 64], [0, 115.2, 64], [0, 0, 1]], np.float32)
+verts = v[None] + np.array([0.02, -0.01, 0.55], np.float32)
+mask = render_full_mask(verts, f, K[None], 128, device="cpu")[0]
+info = build_object_mask_info(mask, mask_to_bbox(mask), None, 64)
+res = find_optimal_poses(v, f, [info], [K], (128, 128),
+                         num_initializations=8, num_iterations=2,
+                         rend_size=64, settings=RasterSettings(
+                             64, tile_px=32, edges_per_tile=96),
+                         device="cpu")
+assert np.isfinite(res[0]["rotations"].numpy()).all()
+assert 0.0 <= res[0]["best_iou"] <= 1.0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -44,6 +72,15 @@ def _sources():
 def test_fit_runs_without_jax_in_a_fresh_process():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _FIT_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_stage_b_runs_without_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _STAGE_B_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -86,6 +123,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         optimize_hand_object(scene.init_state, scene.consts, scene.cfg,
                              num_iterations=1)
+    from homan_tpu_torch.fit.poseinit import find_optimal_poses
+    from homan_tpu_torch.frontend.gtevidence import render_full_mask
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_full_mask(np.zeros((1, 3, 3)), np.array([[0, 1, 2]]),
+                         np.eye(3)[None], 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        find_optimal_poses(np.zeros((3, 3)), np.array([[0, 1, 2]]), [],
+                           [], (64, 64))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
