@@ -87,6 +87,24 @@ Phases, each fatal on failure:
      of frame 0's refinement; a small search (3 frames, 24 candidates, 5
      steps, 64^2) on the card and on the CPU from the same injected
      rotations: poses within 2e-3, best IoU within 1e-3.
+  5. the fit_video driver (homan_tpu_torch/cli/fit_video.py), --gt_masks 1
+     at get_args' defaults (10 frames, 500 candidates, 50 stage-B and 201
+     joint steps, rend_size 256) on a synthetic HO-3D tree written to a
+     temporary directory (40 frames, HO-3D's camera, the synthetic MANO
+     hand as a MANO pickle, a turning bumpy_potato(3, 0.08)), twice, counts
+     set to 0 just before each run and read just after, which must equal
+     the path's count (driver_launches: every stage-B search, 201 shade
+     steps per stage-C fit of the retry ladder, two voxelizer launches of
+     the interaction metrics); per run the wall per clip and each stage
+     timer; gates: the three files, a finite falling loss, no edge excess
+     on the kept fit, the instance render's Kf covering the face demand
+     re-measured on the clip, stage B's demand within its Ke and best IoU
+     >= 0.9, every metric finite; the hand and object pixels of the
+     instance render that the JAX default budget (256 faces a 64-pixel
+     tile) would get wrong, counted; then a 3-frame clip (24 candidates, 5
+     and 5 steps, 64^2) on the card and on the CPU: joint states within
+     3e-3 of each array's maximum, instance-mask pixels that differ
+     counted (at most 0.1% of the mask pixels).
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -1282,6 +1300,398 @@ def stage_b_phase(torch, R):
     return out, rows
 
 
+# The synthetic HO-3D clip of phase 5: HO-3D's camera, the synthetic MANO
+# hand written as a MANO pickle, a rotating bumpy potato as the YCB object.
+HO3D_SEQ, HO3D_OBJ = "ABF11", "003_cracker_box"
+HO3D_K = np.array([[614.0, 0, 320.0], [0, 614.0, 240.0], [0, 0, 1]])
+
+
+def write_mano_pickle(path, arrays):
+    """Write MANO arrays (homan_tpu_torch.core.mano._synthetic_arrays
+    layout) as a MANO_RIGHT.pkl in the license-gated file's format: a
+    scipy-sparse J_regressor, the kinematic tree with the root's parent
+    2^32 - 1, uint32 faces `f`."""
+    import os
+    import pickle
+
+    import scipy.sparse
+    parents = np.asarray(arrays["parents"], np.int64).copy()
+    parents[0] = 2 ** 32 - 1
+    payload = {
+        "v_template": np.asarray(arrays["v_template"]),
+        "shapedirs": np.asarray(arrays["shapedirs"]),
+        "posedirs": np.asarray(arrays["posedirs"]),
+        "J_regressor": scipy.sparse.csc_matrix(arrays["J_regressor"]),
+        "weights": np.asarray(arrays["weights"]),
+        "kintree_table": np.stack([parents, np.arange(len(parents))]),
+        "f": np.asarray(arrays["faces"]).astype(np.uint32),
+        "hands_components": np.asarray(arrays["hands_components"]),
+        "hands_mean": np.asarray(arrays["hands_mean"]),
+    }
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def write_ho3d_tree(root, frames=40, seed=0, obj_subdiv=3):
+    """An HO-3D tree under `root`, where the HO3D dataset's and the
+    driver's defaults look (local_data/datasets/ho3d/train/<seq>/meta/
+    NNNN.pkl, local_data/datasets/ycbmodels/<obj>/textured_simple_2000.obj,
+    extra_data/mano/MANO_RIGHT.pkl): `frames` frames of HO-3D's camera
+    (614 px focal, centre (320, 240)), a hand pose drawn from a numpy seed
+    on the synthetic MANO hand, and a bumpy potato of radius 0.08 m turning
+    a little more each frame. Returns root."""
+    import os
+    import pickle
+
+    from homan_tpu_torch.core.mano import _synthetic_arrays
+    from homan_tpu_torch.core.meshes import bumpy_potato, save_obj
+    meta = os.path.join(root, "local_data", "datasets", "ho3d", "train",
+                        HO3D_SEQ, "meta")
+    os.makedirs(meta, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(frames):
+        annot = {
+            "camMat": HO3D_K,
+            "handJoints3D": rng.randn(21, 3) * 0.02 + [0.1, 0, -0.5],
+            "handPose": (rng.randn(48) * 0.05).astype(np.float64),
+            "handTrans": np.array([0.1, 0.0, -0.5]),
+            "handBeta": np.zeros(10),
+            "objName": HO3D_OBJ,
+            "objRot": (np.array([0.2, 0.1, 0.05])
+                       * (1 + 0.1 * i)).reshape(3, 1),
+            "objTrans": np.array([0.0, 0.0, -0.45]),
+        }
+        with open(os.path.join(meta, f"{i:04d}.pkl"), "wb") as f:
+            pickle.dump(annot, f)
+    ycb = os.path.join(root, "local_data", "datasets", "ycbmodels", HO3D_OBJ)
+    os.makedirs(ycb, exist_ok=True)
+    v, fc = bumpy_potato(obj_subdiv, 0.08, seed=1)
+    save_obj(os.path.join(ycb, "textured_simple_2000.obj"), v, fc)
+    write_mano_pickle(os.path.join(root, "extra_data", "mano",
+                                   "MANO_RIGHT.pkl"), _synthetic_arrays(0))
+    return root
+
+
+# Phase 5: the fit_video driver at get_args' defaults (10 frames, 500
+# candidates, 50 and 201 steps, rend_size 256) on the synthetic clip, and a
+# small clip (3 frames, 24 candidates, 5 and 5 steps, rend_size 64) on the
+# card and on the CPU.
+DRIVER_ARGV = ["--gt_masks", "1", "--chunk_step", "4"]
+SMALL_DRIVER_ARGV = ["--gt_masks", "1", "--frame_nb", "3", "--chunk_step",
+                     "1", "--num_initializations", "24",
+                     "--num_obj_iterations", "5", "--num_joint_iterations",
+                     "5", "--rend_size", "64"]
+DRIVER_METRICS = ("add-s_obj", "chamfer_dists_obj", "verts_dists_hand",
+                  "pen_depths")
+
+
+def driver_launches(args, budgets):
+    """Kernel launches of one driver clip, from the code: every stage-B
+    search (find_optimal_poses at its defaults: halving to C // 4 from 64
+    candidates on, 35 coarse steps, chunks of 125, the rescore where the
+    refinement renders smaller) at stage_b_launches' count; 201 shade
+    forwards with residuals and backwards for each stage-C fit of the
+    retry ladder; one voxelizer launch for each of the two interaction
+    metrics (the fit and its initial state)."""
+    from homan_tpu_torch.fit import poseinit
+    from homan_tpu_torch.render.rasterizer import RasterSettings
+    sb = budgets["stage_b"]
+    inits = args.num_initializations
+    refine = poseinit._refine_settings(
+        RasterSettings(args.rend_size, tile_px=sb["tile_px"]), 0.5)
+    one = stage_b_launches(
+        args.frame_nb, inits, args.num_obj_iterations, 35, 125,
+        max(inits // 4, 16) if inits >= 64 else None,
+        refine.image_size != args.rend_size,
+        bool(args.stageb_parallel_frames))
+    fits = len(budgets["stage_c"]["attempts"])
+    out = {k: v * sb["attempts"] for k, v in one.items()}
+    out["shade_fwd"] += args.num_joint_iterations * fits
+    out["shade_bwd"] += args.num_joint_iterations * fits
+    out["voxelize"] += 2
+    return out
+
+
+def driver_outputs(folder):
+    """The files of sample 0 under a result root: (indep, joint state,
+    results)."""
+    import os
+    import pickle
+    sample = os.path.join(folder, "samples", "00000000")
+    with open(os.path.join(sample, "indep_fit.pkl"), "rb") as f:
+        indep = pickle.load(f)
+    state = dict(np.load(os.path.join(sample, "joint_fit.npz")))
+    with open(os.path.join(sample, "results.pkl"), "rb") as f:
+        res = pickle.load(f)
+    return indep, state, res
+
+
+def check_driver_run(label, folder, summary):
+    """The driver's gates on one run: its files, a finite and falling loss,
+    no edge-budget excess on the kept fit, the instance render's face
+    budget covering the demand re-measured on the clip, stage B's demand
+    within its budget and best IoU >= 0.9, every metric finite."""
+    import os
+    for name in ("indep_fit.pkl", "joint_fit.npz", "results.pkl"):
+        check(os.path.exists(os.path.join(folder, "samples", "00000000",
+                                          name)), f"{label}: no {name}")
+    check(os.path.exists(os.path.join(folder, "results.pkl")),
+          f"{label}: no aggregate results.pkl")
+    indep, state, res = driver_outputs(folder)
+    loss = np.asarray(res["losses"]["loss"])
+    check(all(np.isfinite(np.asarray(v, np.float64)).all()
+              for v in res["losses"].values()),
+          f"{label}: non-finite loss or metric history")
+    check(loss[-1] < loss[0], f"{label}: loss did not fall: {loss[0]} -> "
+          f"{loss[-1]}")
+    check(max(res["losses"]["edge_budget_excess"]) <= 0,
+          f"{label}: the kept fit dropped contour edges")
+    check(all(np.isfinite(np.asarray(v, np.float64)).all()
+              for v in res["metrics"].values()), f"{label}: non-finite "
+          "metric")
+    check(all(np.isfinite(v).all() for v in state.values()),
+          f"{label}: non-finite joint state")
+    b = summary["budgets"]
+    im, sb = b["instance_masks"], b["stage_b"]
+    check(im["faces_per_tile"] >= im["face_demand"][im["tile_px"]],
+          f"{label}: instance render Kf {im} below its demand")
+    check(sb["edge_demand"] <= sb["edge_capacity"],
+          f"{label}: stage B dropped contour edges: {sb}")
+    best = indep["object_parameters"][0]["best_iou"]
+    check(best >= 0.9, f"{label}: stage B best IoU {best} < 0.9")
+    return indep, state, res
+
+
+def remeasure_instance_budget(torch, args, budget):
+    """The instance render's face demand measured again on the clip's GT
+    scene (the dataset's hand and object at 256^2, at the tile it ran and
+    at the JAX package's tile 64): Kf must cover it at its tile. Also the
+    fault the sizing avoids: the same render at the JAX default (tile 64,
+    256 faces a tile) against the sized one, hand and object pixels that
+    differ over the clip. Returns (demand by tile, face count, {"object",
+    "hand": (pixels that differ, pixels of the sized render)})."""
+    from homan_tpu_torch.data.factory import get_dataset
+    from homan_tpu_torch.render import rasterizer as R
+    ds, image_size = get_dataset(args.dataset, split=args.split,
+                                 frame_nb=args.frame_nb,
+                                 chunk_step=args.chunk_step,
+                                 mano_root=args.mano_root, device="cuda")
+    a = ds[0]
+    hand = np.asarray(a["hands"][0]["verts3d"], np.float32)
+    obj = np.asarray(a["objects"][0]["verts3d"], np.float32)
+    hand_faces = ds.mano.faces("right").cpu().numpy()
+    faces = np.concatenate([hand_faces,
+                            np.asarray(a["objects"][0]["faces"][0])
+                            + hand.shape[1]])
+    K = np.asarray(a["camera"]["K"], np.float64).copy()
+    K[:, :2] /= image_size
+    dev = torch.device("cuda")
+    verts = torch.from_numpy(np.concatenate([hand, obj], 1)).to(dev)
+    Kt = torch.from_numpy(K.astype(np.float32)).to(dev)
+    demand = {}
+    for tp in sorted({budget["tile_px"], 64}):
+        st = R.RasterSettings(256, tile_px=tp, faces_per_tile=1 << 20)
+        demand[tp] = R.check_face_budget(verts, faces, Kt, st)["max_demand"]
+    check(demand[budget["tile_px"]] <= budget["faces_per_tile"],
+          f"instance render: demand {demand} above Kf {budget}")
+    colors = torch.zeros((len(faces), 3), device=dev)
+    colors[:len(hand_faces), 0] = 1.0
+    colors[len(hand_faces):, 1] = 1.0
+    masks = []
+    for tp, kf in ((budget["tile_px"], budget["faces_per_tile"]), (64, 256)):
+        rgb = R.rasterize_hard(
+            verts, faces, Kt, colors, R.RasterSettings(
+                256, tile_px=tp, faces_per_tile=kf), background=0.0,
+            ambient=1.0, diffuse=0.0, specular=0.0, shading="flat")["rgb"]
+        masks.append(rgb > 0.5)
+    lost = {name: (int((masks[0][..., c] != masks[1][..., c]).sum()),
+                   int(masks[0][..., c].sum()))
+            for name, c in (("hand", 0), ("object", 1))}
+    return demand, len(faces), lost
+
+
+def capture_driver_inputs(torch):
+    """A context manager recording, while the driver runs, the first inputs
+    of each distinct shape it hands the kernels: the shade pair's through
+    rasterizer.shade_prep (keyed by batch, tiles, image size, tile, Ke,
+    the mesh's edge count and whether the render takes a gradient) and the
+    voxelizer's through sdf.build_scene_sdfs (keyed by mesh batch, faces
+    and grid). Yields {"shade": {name: (verts, topo, K, settings)},
+    "voxelize": {name: (verts, faces, grid)}}; records launch nothing."""
+    import contextlib
+
+    from homan_tpu_torch.interactions import sdf as S
+    from homan_tpu_torch.render import rasterizer as R
+
+    @contextlib.contextmanager
+    def capture():
+        got = {"shade": {}, "voxelize": {}}
+        prep, build = R.shade_prep, S.build_scene_sdfs
+
+        def record_prep(verts, topo, K, settings):
+            grad = torch.is_grad_enabled() and verts.requires_grad
+            S_, tp = settings.image_size, settings.tile_px
+            E = int(topo.edges.shape[0])
+            name = (f"driver B{verts.shape[0]} T{(S_ // tp) ** 2} {S_}px "
+                    f"tile{tp} Ke{min(settings.edges_per_tile, E)} E{E} "
+                    + ("fwd+bwd" if grad else "fwd_only"))
+            got["shade"].setdefault(name, (verts.detach().clone(), topo,
+                                           K.detach().clone(), settings))
+            return prep(verts, topo, K, settings)
+
+        def record_build(verts_list, faces_list, grid_size=32, **kw):
+            for v, f in zip(verts_list, faces_list):
+                name = (f"driver metrics B{v.shape[0]} F{f.shape[0]} "
+                        f"G{grid_size}")
+                got["voxelize"].setdefault(name, (v.detach().clone(), f,
+                                                  grid_size))
+            return build(verts_list, faces_list, grid_size, **kw)
+
+        R.shade_prep, S.build_scene_sdfs = record_prep, record_build
+        try:
+            yield got
+        finally:
+            R.shade_prep, S.build_scene_sdfs = prep, build
+
+    return capture()
+
+
+def driver_kernel_checks(torch, got):
+    """Each kernel against its plain version, timed, at every input shape
+    the driver's run handed it (capture_driver_inputs). Returns (shade rows,
+    voxelizer rows) by name."""
+    from homan_tpu_torch.render import rasterizer as R
+    shade_rows = {}
+    for name, (verts, topo, K, settings) in sorted(got["shade"].items()):
+        with torch.no_grad():
+            seg, anc, _, static = R.shade_prep(verts, topo, K, settings)
+        shade_rows[name] = compare_kernels(torch, name, seg, anc, static,
+                                           timed=True)
+        shade_rows[name]["fwd_only"] = name.endswith("fwd_only")
+    vox_rows = {name: compare_voxelize(torch, name, v, f, g, timed=True)[0]
+                for name, (v, f, g) in sorted(got["voxelize"].items())}
+    return shade_rows, vox_rows
+
+
+def driver_phase(torch):
+    """Phase 5: the fit_video driver, --gt_masks 1 at get_args' defaults,
+    twice on the synthetic HO-3D clip with the launch counts read around
+    each run; each kernel against its plain version at every shape the
+    second run handed it; then the small clip on the card and on the CPU.
+    Returns the result dict, the second run's launch counts and the kernel
+    rows at the driver's shapes (shade, voxelizer)."""
+    import contextlib
+    import os
+    import tempfile
+
+    from homan_tpu_torch.cli import fit_video
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_ho3d_tree(root, frames=40)
+        os.chdir(root)
+        try:
+            runs = []
+            for i in range(2):
+                args = fit_video.get_args(DRIVER_ARGV
+                                          + ["--result_root", f"run{i}"])
+                with (capture_driver_inputs(torch) if i
+                      else contextlib.nullcontext()) as got:
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    summary = fit_video.main(args, device="cuda")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = read_counts()
+                check(len(summary) == 1, f"driver: {len(summary)} samples")
+                summary = summary[0]
+                expect = driver_launches(args, summary["budgets"])
+                print(f"driver run {i + 1}: {wall:.3f} s a clip; launches "
+                      + json.dumps(counts), flush=True)
+                for name, sec in sorted(summary["timers"].items(),
+                                        key=lambda kv: -kv[1]):
+                    print(f"driver run {i + 1} timer {name}: {sec:.3f} s "
+                          f"({sec / wall:.1%})", flush=True)
+                check(counts == expect, f"driver run {i + 1}: launches "
+                      f"{counts}, the path's count is {expect}")
+                indep, _, res = check_driver_run(f"driver run {i + 1}",
+                                                 f"run{i}", summary)
+                runs.append({"wall_s": wall, "timers": summary["timers"],
+                             "launches": counts,
+                             "best_iou": indep["object_parameters"][0][
+                                 "best_iou"],
+                             "loss": [res["losses"]["loss"][0],
+                                      res["losses"]["loss"][-1]]})
+            shade_rows, vox_rows = driver_kernel_checks(torch, got)
+            check(any(not r["fwd_only"] for r in shade_rows.values())
+                  and any(r["fwd_only"] for r in shade_rows.values())
+                  and vox_rows, "driver: no kernel inputs captured: "
+                  f"{sorted(shade_rows)} {sorted(vox_rows)}")
+            remeasured, n_faces, lost = remeasure_instance_budget(
+                torch, args, summary["budgets"]["instance_masks"])
+            metrics = {}
+            for k in DRIVER_METRICS:
+                for key in (k, k + "_init"):
+                    metrics[key] = float(np.mean(res["metrics"][key]))
+            b = summary["budgets"]
+            print("driver budgets: " + json.dumps(
+                {"instance_masks": b["instance_masks"],
+                 "instance_demand_remeasured": remeasured,
+                 "instance_faces": n_faces,
+                 "jax_default_kf_overflows": remeasured[64] > 256,
+                 "jax_default_pixels_differing_of_sized": lost,
+                 "stage_b": b["stage_b"], "stage_c": b["stage_c"]}),
+                flush=True)
+            print("driver metrics (means over the clip's frames): "
+                  + json.dumps(metrics), flush=True)
+            out = {"runs": runs, "budgets": b, "metrics": metrics,
+                   "instance_demand_remeasured": remeasured,
+                   "jax_default_pixels_differing_of_sized": lost}
+
+            # The small clip on the card and on the CPU.
+            small = {}
+            for d in ("cuda", "cpu"):
+                reset_counts()
+                args = fit_video.get_args(SMALL_DRIVER_ARGV
+                                          + ["--result_root", f"small_{d}"])
+                summ = fit_video.main(args, device=d)[0]
+                small[d] = driver_outputs(f"small_{d}")
+                small[d + "_counts"] = read_counts()
+                small[d + "_expect"] = driver_launches(args, summ["budgets"])
+            check(small["cuda_counts"] == small["cuda_expect"],
+                  f"small driver: card launches {small['cuda_counts']}, "
+                  f"expected {small['cuda_expect']}")
+            check(not any(small["cpu_counts"].values()),
+                  f"small driver: CPU run launched {small['cpu_counts']}")
+            (gi, gs, _), (ci, cs, _) = small["cuda"], small["cpu"]
+            err = {k: float(np.abs(gs[k] - cs[k]).max()
+                            / max(np.abs(cs[k]).max(), 1e-30)) for k in cs}
+            masks = [("hand", gi["person_parameters"]["masks"],
+                      ci["person_parameters"]["masks"])] + [
+                (f"object {t}", g["masks"], c["masks"]) for t, (g, c) in
+                enumerate(zip(gi["object_parameters"],
+                              ci["object_parameters"]))]
+            diff = {name: int((np.asarray(g) != np.asarray(c)).sum())
+                    for name, g, c in masks}
+            total = sum(int(np.asarray(c).sum()) for _, _, c in masks)
+            print("small driver, card vs CPU plain path: joint state max "
+                  "rel err " + json.dumps(err) + "; instance-mask pixels "
+                  f"that differ {json.dumps(diff)} of {total} mask pixels",
+                  flush=True)
+            check(max(err.values()) <= 3e-3, f"small driver: card and CPU "
+                  f"joint states differ: {err}")
+            check(sum(diff.values()) <= 1e-3 * total, f"small driver: "
+                  f"instance masks differ on {diff} pixels")
+            out["card_vs_cpu"] = {"state_rel_err": err,
+                                  "mask_pixels_differing": diff,
+                                  "mask_pixels": total}
+        finally:
+            os.chdir(cwd)
+    return out, counts, shade_rows, vox_rows
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1488,6 +1898,9 @@ def main(argv=None) -> int:
     # 4. Stage B: the object-pose search (bench.py bench_stageb) ------------
     stage_b, b_rows = stage_b_phase(torch, R)
 
+    # 5. The fit_video driver, --gt_masks 1 (cli/fit_video.py) ------------
+    driver, driver_counts, d_shade, d_vox = driver_phase(torch)
+
     # Result lines ------------------------------------------------------------
     h = results["fit"]
 
@@ -1565,6 +1978,8 @@ def main(argv=None) -> int:
     # renders (B 125, and the coarse at B 500 in one launch; 128^2, one
     # tile) with residuals and the backward, the rescore's (B 125, 256^2,
     # four tiles) forward-only.
+    for k in kernels:
+        k["launches_per_driver_clip"] = driver_counts[k["name"]]
     for k in kernels[:2]:
         fwd = k["name"] == "shade_fwd"
         k["stage_b"] = {"launches": stage_b["launches"][k["name"]]}
@@ -1585,6 +2000,31 @@ def main(argv=None) -> int:
                 "max_abs_err": r["sil_err" if fwd else "gseg_err"],
                 "library_ms": None if fwd else min(
                     lib["library_index_add_ms"], lib["library_einsum_ms"])}
+    # The driver's own shapes (phase 5), under "driver": each shade render
+    # with residuals and the backward, or forward-only, and the voxelizer
+    # of the interaction metrics.
+    for k in kernels[:2]:
+        fwd = k["name"] == "shade_fwd"
+        k["driver"] = {}
+        for name, r in d_shade.items():
+            if r["fwd_only"] and not fwd:
+                continue
+            pre = ("fwd_only_" if r["fwd_only"] else "fwd_") if fwd \
+                else "bwd_"
+            lib = r["bwd_library"]
+            k["driver"][name] = {
+                "ms": r[pre + "ms"], "device_ms": r[pre + "device_ms"],
+                "plain_ms": r["fwd_plain_ms" if fwd else "bwd_plain_ms"],
+                "bound_ms": r[pre + "bound_ms"],
+                "bound_by": r[pre + "bound_by"],
+                "max_abs_err": r["sil_err" if fwd else "gseg_err"],
+                "library_ms": None if fwd else min(
+                    lib["library_index_add_ms"], lib["library_einsum_ms"])}
+    kernels[4]["driver"] = {
+        name: {"ms": r["ms"], "device_ms": r["device_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "max_abs_err": r["phi_err"],
+               "library_ms": None} for name, r in d_vox.items()}
     fits = {
         "fit": {"frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
                 "ke": ke_fit, "first_wall_s": walls1[0],
@@ -1602,10 +2042,12 @@ def main(argv=None) -> int:
             "first_wall_s": walls3[0], "second_wall_s": walls3[1],
             "ms_per_step": walls3[1] / ITERS3 * 1e3, "profiled": step3},
         "stage_b": stage_b,
+        "driver": driver,
     }
     rows = [(k["name"], k) for k in kernels] + [
         (f"{k['name']} {name}", r) for k in kernels
-        for name, r in k.get("stage_b", {}).items() if isinstance(r, dict)]
+        for part in ("stage_b", "driver")
+        for name, r in k.get(part, {}).items() if isinstance(r, dict)]
     for label, r in rows:
         for key in ("ms", "device_ms"):
             check(r[key] >= r["bound_ms"], f"{label} reads {key} {r[key]}, "

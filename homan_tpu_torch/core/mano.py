@@ -3,13 +3,17 @@
 Shape blendshapes, pose correctives, linear blend skinning over 16 joints and
 the PCA pose parameterization. `mano_forward` is written batched (the JAX
 version is single-sample under vmap). `synthetic_mano_params` is seeded by
-numpy and builds the same hand as the JAX package bit for bit; the real MANO
-pickles are license-gated and not ported in this slice.
+numpy and builds the same hand as the JAX package bit for bit.
+`load_mano_params` reads the license-gated MANO_{RIGHT,LEFT}.pkl files in
+their original format without chumpy.
 
 Parameters are a dict of tensors on one device.
 """
 from __future__ import annotations
 
+import io
+import os
+import pickle
 from typing import Any, Dict
 
 import numpy as np
@@ -78,6 +82,58 @@ def _synthetic_arrays(seed: int) -> Dict[str, np.ndarray]:
         "weights": weights, "parents": parents,
         "hands_components": comps, "hands_mean": hands_mean, "faces": faces,
     }
+
+
+class _ChumpyStub:
+    """Stand-in for chumpy.Ch so MANO pickles load without chumpy."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+class _ManoUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def _to_array(value) -> np.ndarray:
+    if isinstance(value, np.ndarray):
+        return np.asarray(value)
+    if isinstance(value, _ChumpyStub):
+        for attr in ("x", "a", "v"):
+            if attr in value.__dict__:
+                return _to_array(value.__dict__[attr])
+        raise ValueError("Unrecognized chumpy payload in MANO pickle")
+    if hasattr(value, "toarray"):  # scipy sparse J_regressor
+        return np.asarray(value.toarray())
+    return np.asarray(value)
+
+
+def load_mano_params(path: str, device=None) -> Dict[str, Any]:
+    """A MANO_{RIGHT,LEFT}.pkl (homan_tpu/core/mano.py:77) as float32 and
+    int64 tensors on `device` (default `cuda`; raises when CUDA is absent):
+    v_template (778, 3), shapedirs (778, 3, 10), posedirs (778, 3, 135),
+    J_regressor (16, 778), weights (778, 16), parents (16,), the first -1,
+    hands_components (45, 45), hands_mean (45,), faces (F, 3)."""
+    with open(path, "rb") as f:
+        raw = _ManoUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+    kintree = _to_array(raw["kintree_table"]).astype(np.int64)
+    parents = kintree[0].copy()
+    parents[0] = -1
+    shapedirs = _to_array(raw["shapedirs"]).astype(np.float64)
+    return params_to_tensors({
+        "v_template": _to_array(raw["v_template"]),
+        "shapedirs": shapedirs[..., :10],
+        "posedirs": _to_array(raw["posedirs"]),
+        "J_regressor": _to_array(raw["J_regressor"]),
+        "weights": _to_array(raw["weights"]),
+        "parents": parents,
+        "hands_components": _to_array(raw["hands_components"]),
+        "hands_mean": _to_array(raw["hands_mean"]),
+        "faces": _to_array(raw["f"]).astype(np.int64),
+    }, resolve_device(device))
 
 
 def params_to_tensors(arrays: Dict[str, Any], device) -> Dict[str, Any]:
@@ -225,6 +281,19 @@ class ManoLayer:
             "left": (left_params if left_params is not None
                      else mirror_mano_params(right_params)),
         }
+
+    @classmethod
+    def from_folder(cls, mano_root: str, pca_comps: int = 16,
+                    device=None) -> "ManoLayer":
+        """MANO_RIGHT.pkl of `mano_root`, and MANO_LEFT.pkl where present
+        (else the mirrored right hand)."""
+        device = resolve_device(device)
+        right = load_mano_params(os.path.join(mano_root, "MANO_RIGHT.pkl"),
+                                 device)
+        left_path = os.path.join(mano_root, "MANO_LEFT.pkl")
+        left = (load_mano_params(left_path, device)
+                if os.path.exists(left_path) else None)
+        return cls(right, left, pca_comps)
 
     @classmethod
     def synthetic(cls, seed: int = 0, pca_comps: int = 16,

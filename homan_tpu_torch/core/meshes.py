@@ -1,11 +1,40 @@
-"""Procedural meshes, host-side numpy (homan_tpu/core/meshes.py:67-114).
+"""Mesh files, procedural meshes and topology helpers, host-side numpy
+(homan_tpu/core/meshes.py:28-250).
 
-Kept as an exact copy of the JAX package's numpy code so both packages build
-bit-identical test and benchmark objects.
+Kept as an exact copy of the JAX package's numpy code so both packages read,
+write and build bit-identical meshes.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def load_obj(path: str):
+    """Minimal OBJ reader: vertices + triangulated faces (fan triangulation).
+
+    Returns (verts float32 (V,3), faces int32 (F,3)).
+    """
+    verts, faces = [], []
+    with open(path, "r") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(p.split("/")[0]) - 1 for p in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return (np.asarray(verts, np.float32), np.asarray(faces, np.int32))
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray):
+    """Write vertices and 0-based triangle faces as an OBJ file."""
+    with open(path, "w") as f:
+        for v in np.asarray(verts):
+            f.write(f"v {v[0]:f} {v[1]:f} {v[2]:f}\n")
+        for face in np.asarray(faces):
+            f.write(f"f {face[0] + 1:d} {face[1] + 1:d} {face[2] + 1:d}\n")
 
 
 def icosphere(subdivisions: int = 2, radius: float = 1.0):
@@ -55,3 +84,57 @@ def bumpy_potato(subdivisions: int = 2, radius: float = 1.0, seed: int = 0):
     v = v * np.array([1.0, 0.75, 0.55])
     v = v / np.linalg.norm(v, axis=1).max() * radius
     return v.astype(np.float32), f
+
+
+def merge_meshes(meshes):
+    """Concatenate (verts, faces) pairs into one mesh with offset faces."""
+    verts, faces, off = [], [], 0
+    for v, f in meshes:
+        verts.append(np.asarray(v, np.float32))
+        faces.append(np.asarray(f, np.int64) + off)
+        off += len(v)
+    return (np.concatenate(verts).astype(np.float32),
+            np.concatenate(faces).astype(np.int32))
+
+
+def close_boundary_fan(faces: np.ndarray) -> np.ndarray:
+    """Close every boundary loop of a consistently wound triangle mesh by
+    fan triangulation (the closed-fist MANO topology of the SDF terms:
+    the open wrist ring capped). Boundary directed edges (whose reverse
+    never occurs) are chained into loops, each fanned from its first vertex
+    with triangles (apex, v, u) that hold the reversed edge v->u, so the
+    winding stays consistent. Watertight input is returned unchanged."""
+    faces = np.asarray(faces)
+    d_edges = np.concatenate(
+        [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    edge_set = set(map(tuple, d_edges.tolist()))
+    nxt = {u: v for (u, v) in edge_set if (v, u) not in edge_set}
+    new_faces = []
+    visited = set()
+    for start in sorted(nxt):
+        if start in visited:
+            continue
+        loop = [start]
+        visited.add(start)
+        cur = nxt[start]
+        while cur != start:
+            loop.append(cur)
+            visited.add(cur)
+            cur = nxt[cur]
+        for i in range(1, len(loop) - 1):
+            new_faces.append([loop[0], loop[i + 1], loop[i]])
+    if not new_faces:
+        return faces.copy()
+    return np.concatenate([faces, np.asarray(new_faces, faces.dtype)])
+
+
+def load_closed_hand_faces(path: str | None, open_faces: np.ndarray):
+    """Closed-fist hand topology: from an (F, 3) npy file when given, else
+    derived by closing the wrist ring (close_boundary_fan)."""
+    if path:
+        closed = np.load(path)
+        if closed.ndim != 2 or closed.shape[1] != 3:
+            raise ValueError(f"{path}: expected (F, 3) faces, got "
+                             f"{closed.shape}")
+        return closed.astype(np.int32)
+    return close_boundary_fan(np.asarray(open_faces)).astype(np.int32)

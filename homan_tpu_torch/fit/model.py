@@ -118,12 +118,21 @@ def init_state(cfg: HomanConfig, translations_object, rotations_object,
     )
 
 
+def get_verts_object_parts(rot6d, trans, scale, verts_og):
+    """get_verts_object from its four leaves (rot6d (B, 3, 2), trans
+    (B, 1, 3), scale (1,), verts_og (Vo, 3)), for callers that hold no
+    consts (the driver's edge-budget check)."""
+    R = geo.rot6d_to_matrix(rot6d)
+    return cam.compute_transformation_persp(verts_og, trans, R,
+                                            torch.abs(scale))
+
+
 def get_verts_object(state: HomanState, consts: HomanConsts):
     """(B, Vo, 3) posed object vertices (+ mesh-detached twin)."""
-    R = geo.rot6d_to_matrix(state.rotations_object)
-    return cam.compute_transformation_persp(
-        consts.verts_object_og, state.translations_object, R,
-        torch.abs(state.int_scales_object))
+    return get_verts_object_parts(state.rotations_object,
+                                  state.translations_object,
+                                  state.int_scales_object,
+                                  consts.verts_object_og)
 
 
 def _mano_verts_all_sides(state: HomanState, consts: HomanConsts,

@@ -17,9 +17,15 @@ the device: the loop makes no host sync. Renders without a gradient (the
 final evaluation of a refinement, the full-resolution rescore) run under
 `torch.no_grad()` and take the shade kernel's forward-only mode.
 
+Every render also reports its largest per-tile contour-edge demand; the
+search returns the largest over all its renders beside the capacity, so a
+caller can tell whether the edge budget dropped edges anywhere (the JAX
+package does not check). `search_edge_settings` sizes that budget before
+the search from the demand of its initial candidates.
+
 Not ported: `prewarm_programs` (it overlaps XLA compiles; eager PyTorch has
-nothing to compile) and `visualize_optimal_poses` (it needs the hard
-rasterizer, which is not ported yet).
+nothing to compile) and `visualize_optimal_poses` (viz comes with ROADMAP.md
+Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -36,7 +42,10 @@ from homan_tpu_torch.core import geometry as geo
 from homan_tpu_torch.fit.losses import batch_mask_iou
 from homan_tpu_torch.frontend.masks import crop_and_resize
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
-                                               as_topology, rasterize_soft)
+                                               as_topology,
+                                               auto_edge_settings,
+                                               check_edge_budget,
+                                               rasterize_soft)
 
 RENDER_FAR = 100.0  # NMR renderer default far plane
 
@@ -188,22 +197,23 @@ def _score_candidates(vertices, topo, target_mask, keep_mask, K_roi,
                       rot6d, trans, settings: RasterSettings,
                       candidate_chunk: int = 125, group: int = 1):
     """Forward-only IoU (C,) of C candidates against their evidence (JAX
-    poseinit.py:194), chunk by chunk. Evidence arrays are shared ((S, S),
+    poseinit.py:194), chunk by chunk, and the renders' largest per-tile
+    contour-edge demand as a 0-d tensor. Evidence arrays are shared ((S, S),
     (3, 3)) or hold one entry per `group` consecutive candidates."""
     C = rot6d.shape[0]
     ref_c = _PerCandidate(target_mask, 2, C, group)
     keep_c = _PerCandidate(keep_mask, 2, C, group)
     K_c = _PerCandidate(K_roi, 2, C, group)
-    ious = []
+    ious, demand = [], []
     with torch.no_grad():
         for s, e in _chunks(C, candidate_chunk):
             R = geo.rot6d_to_matrix(rot6d[s:e])
             verts = torch.einsum("vj,cjk->cvk", vertices, R) + trans[s:e]
-            sil = rasterize_soft(verts, topo, K_c.chunk(s, e),
-                                 settings)["sil"]
-            ious.append(batch_mask_iou(keep_c.chunk(s, e) * sil,
+            out = rasterize_soft(verts, topo, K_c.chunk(s, e), settings)
+            ious.append(batch_mask_iou(keep_c.chunk(s, e) * out["sil"],
                                        ref_c.chunk(s, e)))
-    return torch.cat(ious)
+            demand.append(out["edge_demand"].max())
+    return torch.cat(ious), torch.stack(demand).max()
 
 
 def candidate_loss_terms(verts, topo, target_mask, keep_mask, edt, K_roi,
@@ -211,8 +221,10 @@ def candidate_loss_terms(verts, topo, target_mask, keep_mask, edt, K_roi,
     """Per-candidate stage-B loss terms (JAX poseinit.py:227): a dict of (C,)
     tensors `mask` (keep-masked silhouette L2), `chamfer` (maxpool edge x
     EDT, weighted by lw_chamfer), `off_xy`/`off_z` (the offscreen penalty's
-    parts, unweighted; xy in the [0, 1] normalized projection) and `iou`."""
-    sil = rasterize_soft(verts, topo, K_roi, settings)["sil"]
+    parts, unweighted; xy in the [0, 1] normalized projection), `iou`, and
+    `edge_demand`, each render's largest per-tile contour-edge demand."""
+    out = rasterize_soft(verts, topo, K_roi, settings)
+    sil = out["sil"]
     image = keep_mask * sil
     l_mask = ((image - target_mask) ** 2).sum(dim=(1, 2))
     if lw_chamfer > 0:
@@ -227,7 +239,8 @@ def candidate_loss_terms(verts, topo, target_mask, keep_mask, edt, K_roi,
     off_z = (torch.clamp(-zc, min=0.0).sum(dim=1)
              + torch.clamp(zc - RENDER_FAR, min=0.0).sum(dim=1))
     return {"mask": l_mask, "chamfer": l_chamfer, "off_xy": off_xy,
-            "off_z": off_z, "iou": batch_mask_iou(image, target_mask)}
+            "off_z": off_z, "iou": batch_mask_iou(image, target_mask),
+            "edge_demand": out["edge_demand"]}
 
 
 @dataclasses.dataclass
@@ -253,9 +266,10 @@ def _fit_candidates(vertices, topo, target_mask, keep_mask, edt, K_roi,
     chunk's render intermediates live until its backward.
 
     Returns (params {"rot6d", "trans"}, final totals (C,), final IoUs (C,),
-    history {"loss_min", "iou_max"} (num_iterations,)), every tensor on the
-    candidates' device; the history holds each step's values before its
-    update.
+    history {"loss_min", "iou_max"} (num_iterations,) and "edge_demand",
+    the largest per-tile contour-edge demand of every render, 0-d), every
+    tensor on the candidates' device; the history holds each step's values
+    before its update.
     """
     C = rot6d_init.shape[0]
     bounds = _chunks(C, candidate_chunk)
@@ -275,27 +289,32 @@ def _fit_candidates(vertices, topo, target_mask, keep_mask, edt, K_roi,
                                  ev["edt"].chunk(s, e), ev["K"].chunk(s, e),
                                  settings, lw_chamfer=lw_chamfer)
         total = t["mask"] + t["chamfer"] + 1e5 * (t["off_xy"] + t["off_z"])
-        return total, t["iou"]
+        return total, t["iou"], t["edge_demand"].max()
 
     loss_min, iou_max = [], []
+    demand = torch.zeros((), dtype=torch.int64, device=rot6d.device)
     for _ in range(num_iterations):
         opt.zero_grad(set_to_none=True)
         totals, ious = [], []
         for s, e in bounds:
-            total, iou = chunk_loss(s, e)
+            total, iou, d = chunk_loss(s, e)
             total.sum().backward()
             totals.append(total.detach())
             ious.append(iou)
+            demand = torch.maximum(demand, d)
         opt.step()
         loss_min.append(torch.cat(totals).min())
         iou_max.append(torch.cat(ious).max())
     with torch.no_grad():
         final = [chunk_loss(s, e) for s, e in bounds]
+    for _, _, d in final:
+        demand = torch.maximum(demand, d)
     params = {"rot6d": rot6d.detach(), "trans": trans.detach()}
     history = {"loss_min": torch.stack(loss_min) if loss_min
                else rot6d.new_zeros(0),
                "iou_max": torch.stack(iou_max) if iou_max
-               else rot6d.new_zeros(0)}
+               else rot6d.new_zeros(0),
+               "edge_demand": demand}
     return (params, torch.cat([f[0] for f in final]),
             torch.cat([f[1] for f in final]), history)
 
@@ -402,7 +421,9 @@ def find_optimal_poses(
       per frame dicts: rotations (1, 3, 3), translations (1, 1, 3),
       verts_trans (1, V, 3), target_masks (1, R, R), K_roi (1, 3, 3),
       masks, verts (1, V, 3), full_mask (tensors on the device), and
-      best_iou, a float.
+      best_iou, a float; edge_demand, the largest per-tile contour-edge
+      demand of every render of the search, and edge_capacity, the edge
+      slots a tile had: edges were dropped where the demand exceeds it.
     """
     device = resolve_device(device)
     topo = as_topology(faces, device=device)
@@ -425,6 +446,7 @@ def find_optimal_poses(
                                 lw_chamfer, device)
 
     previous_rotations = None
+    demands = []  # each refinement's and the rescore's largest edge demand
     all_params = []
     all_ious = []
     full_evidence = []  # (ref, keep, K_roi) per frame, full res, for rescore
@@ -448,18 +470,20 @@ def find_optimal_poses(
 
         if prune_to is not None and frame_i == 0 and \
                 prune_to < num_initializations:
-            c_params, _, c_ious, _ = _fit_candidates(
+            c_params, _, c_ious, c_hist = _fit_candidates(
                 vertices, topo, ref_r, keep_r, edt_r, K_roi, rot6d, trans,
                 refine_settings, num_iterations=coarse_iterations,
                 lw_chamfer=0.0, candidate_chunk=candidate_chunk)
             rot6d, trans = _prune_select(c_ious, c_params["rot6d"],
                                          c_params["trans"], prune_to)
+            demands.append(c_hist["edge_demand"])
 
-        params, _, ious, _ = _fit_candidates(
+        params, _, ious, hist = _fit_candidates(
             vertices, topo, ref_r, keep_r, edt_r, K_roi, rot6d, trans,
             refine_settings, num_iterations=num_iterations,
             lw_chamfer=lw_chamfer, candidate_chunk=candidate_chunk)
 
+        demands.append(hist["edge_demand"])
         rot_final = geo.rot6d_to_matrix(params["rot6d"])
         previous_rotations = rot_final
         all_params.append({
@@ -493,13 +517,14 @@ def find_optimal_poses(
                 np.asarray(annot["bbox"], np.float32), rotated,
                 as_K(K))[:, None, :])
         n_rest = len(rest)
-        params, _, ious, _ = _fit_candidates(
+        params, _, ious, hist = _fit_candidates(
             vertices, topo, torch.stack(refs), torch.stack(keeps),
             torch.stack(edts), torch.stack(Krois),
             geo.matrix_to_rot6d(rot0).repeat(n_rest, 1, 1),
             torch.cat(transs), refine_settings,
             num_iterations=num_iterations, lw_chamfer=lw_chamfer,
             candidate_chunk=min(3 * candidate_chunk, n_rest * C), group=C)
+        demands.append(hist["edge_demand"])
         rot_final = geo.rot6d_to_matrix(params["rot6d"]).reshape(
             n_rest, C, 3, 3)
         rot6d_final = params["rot6d"].reshape(n_rest, C, 3, 2)
@@ -522,12 +547,13 @@ def find_optimal_poses(
         # candidates; each frame's evidence is read by its C candidates.
         C = all_params[0]["rotations"].shape[0]
         T = len(all_params)
-        ious_full = _score_candidates(
+        ious_full, demand = _score_candidates(
             vertices, topo, *(torch.stack([ev[i] for ev in full_evidence])
                               for i in range(3)),
             torch.cat([p["rot6d"] for p in all_params]),
             torch.cat([p["translations"] for p in all_params]), settings,
             candidate_chunk=candidate_chunk, group=C)
+        demands.append(demand)
         all_ious = list(ious_full.reshape(T, C))
 
     rot_all = torch.stack([p["rotations"] for p in all_params])
@@ -535,6 +561,8 @@ def find_optimal_poses(
     R_sel, t_sel, vt_sel, _, best_iou = _select_best(
         rot_all, trans_all, torch.stack(all_ious), vertices)
     best_iou = float(best_iou)
+    edge_demand = int(torch.stack(demands).max())
+    edge_capacity = min(settings.edges_per_tile, int(topo.edges.shape[0]))
     final = []
     for ti, frame_params in enumerate(all_params):
         final.append({
@@ -547,5 +575,48 @@ def find_optimal_poses(
             "verts": vertices[None],
             "full_mask": frame_params["masks"],
             "best_iou": best_iou,
+            "edge_demand": edge_demand,
+            "edge_capacity": edge_capacity,
         })
     return final
+
+
+def search_edge_settings(vertices, faces, annotation: Dict, K,
+                         settings: RasterSettings,
+                         num_initializations: int = 500, seed: int = 0,
+                         rend_size: int = 256, refine_scale: float = 0.5,
+                         device=None):
+    """Edge slots for find_optimal_poses from the contour-edge demand of
+    its initial candidates: frame 0's `num_initializations` rotations drawn
+    from `seed` as the search draws them, placed by `_chain_init` in the
+    frame's crop (`annotation`, pixel intrinsics K).
+
+    The demand is measured at the refinement's size and at the full
+    (rescore) size, each sized by auto_edge_settings (x1.3, the next
+    bucket, halving the tile where no bucket fits); the search takes the
+    smaller tile and the larger Ke. Returns (settings, {"refine",
+    "rescore"}: the measured maximum demand at each size).
+    """
+    device = resolve_device(device)
+    topo = as_topology(faces, device=device)
+    topo = MeshTopology(**{k: v.to(device) for k, v in vars(topo).items()})
+    vertices = torch.as_tensor(vertices, dtype=torch.float32, device=device)
+    rotations = geo.random_rotations(
+        num_initializations, generator=torch.Generator().manual_seed(seed),
+        device=device)
+    _, _, _, K_roi = _frame_evidence(annotation, K, rend_size, device)
+    _, trans = _chain_init(
+        vertices, rotations, np.asarray(annotation["bbox"], np.float32),
+        torch.as_tensor(np.asarray(K, np.float32), device=device))
+    with torch.no_grad():
+        verts = torch.einsum("vj,cjk->cvk", vertices, rotations) + trans
+    K_all = K_roi.expand(num_initializations, 3, 3)
+    sized, demand = [], {}
+    for name, st in (("refine", _refine_settings(settings, refine_scale)),
+                     ("rescore", settings)):
+        demand[name] = check_edge_budget(verts, topo, K_all,
+                                         st)["max_demand"]
+        sized.append(auto_edge_settings(verts, topo, K_all, st))
+    return dataclasses.replace(
+        settings, tile_px=min(x.tile_px for x in sized),
+        edges_per_tile=max(x.edges_per_tile for x in sized)), demand

@@ -1,5 +1,4 @@
-"""Mask crops and occlusion-aware targets (the stage-B part of
-homan_tpu/frontend/masks.py).
+"""Mask crops and occlusion-aware targets (homan_tpu/frontend/masks.py).
 
 `crop_and_resize` is the numpy ROIAlign-style bilinear crop of the JAX
 package, the same float32 arithmetic in the same order, so its results are
@@ -8,12 +7,13 @@ Target convention: -1 = occluded/ignore, 0 = background, 1 = foreground.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from homan_tpu_torch.core import bbox as bbox_ops
+from homan_tpu_torch.core import camera as cam
 
 REND_SIZE = 256  # evidence resolution
 
@@ -98,3 +98,42 @@ def add_occlusions(masks: Sequence[np.ndarray], occluder_mask: np.ndarray,
         with_occ[np.asarray(mask, bool)] = 1
         out.append(with_occ)
     return out
+
+
+def add_target_hand_occlusions(person_parameters: Dict,
+                               object_parameters: Dict,
+                               K: np.ndarray,
+                               square_expand: float = 0.0,
+                               rend_size: int = REND_SIZE) -> Dict:
+    """Per-hand occlusion-aware target masks and ROI intrinsics (JAX
+    masks.py:129), host numpy.
+
+    person_parameters: {"bboxes" (B, 4) xyxy, "masks" (B, H, W)}, updated in
+    place with target_masks (B, R, R) in {-1, 0, 1} (object pixels -1),
+    K_roi (B, 3, 3) normalized to the crop, and square_bboxes (B, 4) xyxy.
+    object_parameters: {"full_mask" (H, W), or (B, H, W) one per row}.
+    K: (3, 3) pixel intrinsics of the full image, or (B, 3, 3) one per row.
+    """
+    person_masks = np.asarray(person_parameters["masks"], np.float32)
+    tight = np.asarray(person_parameters["bboxes"], np.float32)
+    b = tight.shape[0]
+    square = bbox_ops.bbox_wh_to_xy(
+        bbox_ops.make_bbox_square(bbox_ops.bbox_xy_to_wh(tight),
+                                  bbox_expansion=square_expand))
+    target = crop_and_resize(person_masks, square, rend_size)
+    target = (target >= 0.5).astype(np.float32)
+    obj_full = np.asarray(object_parameters["full_mask"], np.float32)
+    if obj_full.ndim == 2:
+        obj_full = np.tile(obj_full[None], (b, 1, 1))
+    obj_crops = crop_and_resize(obj_full, square, rend_size) >= 0.5
+    target[obj_crops] = -1
+
+    K = np.asarray(K, np.float32)
+    K_b = np.tile(K[None], (b, 1, 1)) if K.ndim == 2 else K
+    K_roi = cam.get_K_crop_resize_np(K_b, square, rend_size)
+    K_roi[:, :2] = K_roi[:, :2] / rend_size  # normalized rendering space
+
+    person_parameters["target_masks"] = target
+    person_parameters["K_roi"] = K_roi
+    person_parameters["square_bboxes"] = square
+    return person_parameters

@@ -21,6 +21,11 @@ The depth half (`depth_prep`, `rasterize_depth`; the counterpart of
 `faces_per_tile` overlapping faces per tile in face-index order, reduces
 each to its sign-folded edge lines and its screen-linear inverse depth, and
 runs the hard z-buffer kernel pair of render/depth.py.
+
+`rasterize_hard`, the non-differentiable z-buffer of the evidence and viz
+renders (flat or Phong shading), has no kernel: it is plain PyTorch on the
+same face binning. `auto_edge_settings` and `bump_edge_settings` size the
+shade kernels' edge slots from the measured contour-edge demand.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 from homan_tpu_torch.render.depth import DepthStatic, depth_tiles
-from homan_tpu_torch.render.shade import ShadeStatic, shade_tiles
+from homan_tpu_torch.render.shade import (FWD_MAX_KE, ShadeStatic,
+                                          shade_tiles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,3 +481,278 @@ def check_face_budget(verts, topology, K,
         "overflow": demand > capacity,
         "utilization": demand / max(capacity, 1),
     }
+
+
+# (tiles x pixels x face slots) elements a chunk of rasterize_hard's
+# per-(pixel, slot) temporaries may hold: about ten such float32 or bool
+# tensors live at once, so a chunk peaks near 10 x 64 MB.
+HARD_CHUNK_ELEMS = 1 << 24
+
+
+def _tile_pixel_centers(S: int, tp: int, device):
+    """(T, P, 2) pixel centres (u, v) of each tile, row-major inside the
+    tile, tiles row-major."""
+    g = S // tp
+    c = (torch.arange(S, dtype=torch.float32, device=device) + 0.5) / S
+    t = torch.arange(g * g, device=device)
+    p = torch.arange(tp * tp, device=device)
+    rows = (t // g)[:, None] * tp + (p // tp)[None]
+    cols = (t % g)[:, None] * tp + (p % tp)[None]
+    return torch.stack([c[cols], c[rows]], dim=-1)
+
+
+def _hard_zbuffer(tri_uv, tri_z, idx, hit, pix):
+    """Nearest covering face of every pixel, over each tile's binned slots.
+
+    tri_uv (B, F, 3, 2), tri_z (B, F, 3); idx, hit (B, T, Kf) the binned
+    faces; pix (T, P, 2). Runs (frame, tile) rows in chunks of at most
+    HARD_CHUNK_ELEMS (row x pixel x slot) elements. Returns, per (B, T, P): the
+    winning face, whether it covers the pixel, its depth, and its three
+    screen-space barycentrics. Ties go to the lowest slot, i.e. the lowest
+    face index.
+    """
+    B, T, kf = idx.shape
+    P = pix.shape[1]
+    dev = tri_uv.device
+    flat_idx = idx.reshape(B * T, kf)
+    flat_hit = hit.reshape(B * T, kf)
+    step = max(1, HARD_CHUNK_ELEMS // max(P * kf, 1))
+    out = {k: [] for k in ("face", "covered", "z", "w")}
+    for r0 in range(0, B * T, step):
+        rows = torch.arange(r0, min(r0 + step, B * T), device=dev)
+        bi, ti = rows // T, rows % T
+        fidx = flat_idx[rows]                          # (R, Kf)
+        tuv = tri_uv[bi[:, None], fidx]                # (R, Kf, 3, 2)
+        tz = tri_z[bi[:, None], fidx]                  # (R, Kf, 3)
+        p = pix[ti][:, :, None, :]                     # (R, P, 1, 2)
+        a, b, c = (tuv[:, None, :, i, :] for i in range(3))
+        e0, e1, e2 = _edge_fn(p, b, c), _edge_fn(p, c, a), _edge_fn(p, a, b)
+        inside = ((((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+                   | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)))
+                  & flat_hit[rows][:, None, :])
+        ar = _edge_fn(a, b, c)
+        one = torch.ones((), dtype=ar.dtype, device=dev)
+        denom = torch.where(ar.abs() > 1e-12, ar, one)
+        w0, w1, w2 = e0 / denom, e1 / denom, e2 / denom
+        tzc = torch.clamp(tz, min=1e-6)[:, None]       # (R, 1, Kf, 3)
+        inv_z = w0 / tzc[..., 0] + w1 / tzc[..., 1] + w2 / tzc[..., 2]
+        z_pix = 1.0 / torch.clamp(inv_z, min=1e-6)
+        z_buf = torch.where(inside, z_pix, torch.full((), 1e6, device=dev))
+        best = torch.argmin(z_buf, dim=-1, keepdim=True)  # first minimum
+        out["face"].append(torch.gather(fidx[:, None, :].expand(-1, P, -1),
+                                        2, best)[..., 0])
+        out["covered"].append(torch.gather(inside, 2, best)[..., 0])
+        out["z"].append(torch.gather(z_buf, 2, best)[..., 0])
+        out["w"].append(torch.stack(
+            [torch.gather(w, 2, best)[..., 0] for w in (w0, w1, w2)], -1))
+    return {k: torch.cat(v).reshape((B, T, P) + v[0].shape[2:])
+            for k, v in out.items()}
+
+
+def rasterize_hard(verts, topology, K, face_colors=None,
+                   settings: RasterSettings = RasterSettings(),
+                   background: float = 1.0,
+                   light_dir=(0.57735, 0.57735, -0.57735),
+                   ambient: float = 0.55, diffuse: float = 0.45,
+                   shading: str = "phong", specular: float = 0.2,
+                   shininess: float = 32.0):
+    """Hard z-buffer rasterization for evidence and visualization, without
+    gradient (homan_tpu/render/rasterizer.py:766).
+
+    Faces are binned as the depth renders bin them: the first
+    `faces_per_tile` overlapping faces of a tile by index, with a half-pixel
+    margin. A dropped face leaves a hole or a wrong winner in its tile, so
+    size the budget from the demand (`hard_face_settings`). Once Kf covers
+    every tile's demand the output does not depend on the tile: each pixel
+    takes the nearest covering face, the lowest index on ties.
+
+    shading="phong" interpolates area-weighted vertex normals with
+    perspective-correct barycentrics and adds a Blinn-Phong highlight;
+    "flat" keeps per-face two-sided Lambertian shading.
+
+    verts (B, V, 3) camera space; topology a MeshTopology or (F, 3) faces;
+    K (B, 3, 3) normalized; face_colors (F, 3), white if None. The
+    (tiles x pixels x Kf) temporaries run in chunks of HARD_CHUNK_ELEMS.
+    Returns dict rgb (B, S, S, 3), depth (B, S, S), sil (B, S, S) bool.
+    """
+    if shading not in ("phong", "flat"):
+        raise ValueError(f"shading must be 'phong' or 'flat', got {shading}")
+    s = settings
+    S, tp = s.image_size, s.tile_px
+    if S % tp:
+        raise ValueError("image_size must be a multiple of tile_px")
+    g = S // tp
+    dev = verts.device
+    topo = as_topology(topology, device=dev)
+    faces = topo.faces
+    F = faces.shape[0]
+    B = verts.shape[0]
+    with torch.no_grad():
+        verts = verts.to(torch.float32)
+        if face_colors is None:
+            face_colors = torch.ones((F, 3), dtype=torch.float32, device=dev)
+        face_colors = torch.as_tensor(face_colors, dtype=torch.float32,
+                                      device=dev)
+        light = torch.tensor(light_dir, dtype=torch.float32, device=dev)
+        light = light / torch.linalg.vector_norm(light)
+        tri_uv, tri_z, _, overlap = _face_data(verts, topo, K, s)
+        idx, hit, _ = _bin_first(overlap, min(s.faces_per_tile, F))
+        zb = _hard_zbuffer(tri_uv, tri_z, idx, hit,
+                           _tile_pixel_centers(S, tp, dev))
+        face, covered = zb["face"], zb["covered"]      # (B, T, P)
+        tri_3d = verts[:, faces]                        # (B, F, 3, 3)
+        raw_normals = torch.linalg.cross(tri_3d[:, :, 1] - tri_3d[:, :, 0],
+                                         tri_3d[:, :, 2] - tri_3d[:, :, 0])
+        bidx = torch.arange(B, device=dev)[:, None, None]
+        fcol = face_colors[face]                        # (B, T, P, 3)
+        if shading == "phong":
+            # Area-weighted vertex normals: the raw cross product's
+            # magnitude (twice the face area) is the weight.
+            vnorm = torch.zeros_like(verts)
+            for ci in range(3):
+                vnorm.index_add_(1, faces[:, ci], raw_normals)
+            vnorm = vnorm / torch.clamp(torch.linalg.vector_norm(
+                vnorm, dim=-1, keepdim=True), min=1e-9)
+            f_v = faces[face]                           # (B, T, P, 3)
+            tz_b = tri_z[bidx, face]                    # (B, T, P, 3)
+            bar = zb["w"] / torch.clamp(tz_b, min=1e-6)
+            bar = bar / torch.clamp(bar.sum(-1, keepdim=True), min=1e-9)
+            n_pix = torch.einsum("btpc,btpcd->btpd", bar,
+                                 vnorm[bidx[..., None], f_v])
+            n_pix = n_pix / torch.clamp(torch.linalg.vector_norm(
+                n_pix, dim=-1, keepdim=True), min=1e-9)
+            p3d = torch.einsum("btpc,btpcd->btpd", bar,
+                               verts[bidx[..., None], f_v])
+            view = -p3d / torch.clamp(torch.linalg.vector_norm(
+                p3d, dim=-1, keepdim=True), min=1e-9)
+            half = light + view
+            half = half / torch.clamp(torch.linalg.vector_norm(
+                half, dim=-1, keepdim=True), min=1e-9)
+            lam = ambient + diffuse * (n_pix @ light).abs()
+            spec = specular * (n_pix * half).sum(-1).abs() ** shininess
+            rgb = torch.clamp(fcol * lam[..., None] + spec[..., None],
+                              0.0, 1.0)
+        else:
+            normals = raw_normals / torch.clamp(torch.linalg.vector_norm(
+                raw_normals, dim=-1, keepdim=True), min=1e-9)
+            shade = ambient + diffuse * (normals @ light).abs()  # (B, F)
+            rgb = fcol * shade[bidx, face][..., None]
+        rgb = torch.where(covered[..., None], rgb,
+                          torch.full((), background, device=dev))
+        depth = torch.where(covered, zb["z"], torch.zeros((), device=dev))
+
+        def untile(x):
+            lead = x.shape[3:]
+            x = x.reshape((B, g, g, tp, tp) + lead)
+            return x.transpose(2, 3).reshape((B, S, S) + lead)
+
+        return {"rgb": untile(rgb), "depth": untile(depth),
+                "sil": untile(covered)}
+
+
+# Tiles rasterize_hard may take for a render when its budget is sized
+# (the tile-halving floor of auto_edge_settings is 16).
+HARD_TILES = (64, 32, 16)
+
+
+def hard_face_settings(verts, topology, K,
+                       settings: RasterSettings = RasterSettings()):
+    """rasterize_hard's settings for fixed poses: faces_per_tile is the
+    measured per-tile face demand (the largest over the batch, no headroom,
+    at least 1), at the tile of HARD_TILES (those dividing image_size) that
+    makes tiles x pixels x demand, the size of the render's (pixel, slot)
+    temporaries, smallest; the first such tile on ties.
+
+    Returns (settings, {tile_px: demand}).
+    """
+    topo = as_topology(topology, device=verts.device)
+    S = settings.image_size
+    demand = {}
+    for tp in HARD_TILES:
+        if S % tp == 0:
+            st = dataclasses.replace(settings, tile_px=tp,
+                                     faces_per_tile=1 << 30)
+            demand[tp] = check_face_budget(verts, topo, K,
+                                           st)["max_demand"]
+    if not demand:
+        raise ValueError(f"no tile of {HARD_TILES} divides image_size {S}")
+    tp = min(demand, key=lambda t: ((S // t) ** 2 * t * t * demand[t],
+                                    HARD_TILES.index(t)))
+    return (dataclasses.replace(settings, tile_px=tp,
+                                faces_per_tile=max(demand[tp], 1)), demand)
+
+
+EDGE_BUCKETS = (48, 64, 96, 128, 192, 256, 384, 512)
+# The card's edge-slot ceiling is FWD_MAX_KE at every tile_px
+# (homan_tpu/render/rasterizer.py:947 holds the TPU's VMEM table, which the
+# card does not share). The forward keeps four float4 records per (slot,
+# row) of its row block in shared memory and halves the block's rows until
+# they fit kMaxForwardSmem (render/csrc/shade.cu:135, 200 KiB): at one row
+# that is 200 KiB / 64 B = 3,200 slots at any tile. The backward caps its
+# warp and strip lists at 128 and 1,024 slots and adds the tile's lists in
+# windows of 2,048 slots, so it takes any Ke. Every bucket is under that
+# ceiling, so the largest bucket is the only cap: a demand above it halves
+# the tile.
+assert max(EDGE_BUCKETS) <= FWD_MAX_KE
+
+
+def auto_edge_settings(verts, topology, K,
+                       settings: RasterSettings = RasterSettings(),
+                       safety: float = 1.3,
+                       buckets=EDGE_BUCKETS) -> RasterSettings:
+    """Size edges_per_tile (and, if needed, tile_px) to the measured
+    contour-edge demand (homan_tpu/render/rasterizer.py:952).
+
+    Measures the per-tile demand at the given poses (check_edge_budget, the
+    renderer's own binning predicate) and returns `settings` with
+    edges_per_tile the smallest bucket covering demand x safety; keeps
+    `settings` unchanged when they already cover it. When no bucket covers
+    it, halves tile_px and measures again; raises RuntimeError when tile_px
+    16 still overflows (a dropped contour edge corrupts the winding region,
+    so this is never a warning). The JAX package also halves the tile when
+    the bucket passes its TPU VMEM table; every bucket fits the card.
+    """
+    s = settings
+    topo = as_topology(topology, device=verts.device)
+    n_edges = int(topo.edges.shape[0])
+    while True:
+        demand = check_edge_budget(verts, topo, K, s)["max_demand"]
+        need = min(int(np.ceil(demand * safety)), n_edges)
+        if min(s.edges_per_tile, n_edges) >= need:
+            return s
+        feasible = [b for b in buckets if need <= b]
+        if feasible:
+            return dataclasses.replace(s, edges_per_tile=feasible[0])
+        if s.tile_px <= 16 or s.tile_px // 2 > s.image_size:
+            raise RuntimeError(
+                f"edge budget unsatisfiable: demand {demand} (need {need} "
+                f"with {safety}x headroom) exceeds the largest bucket "
+                f"{buckets[-1]} at tile_px={s.tile_px}; the mesh is too "
+                f"dense for exact contour binning at image_size="
+                f"{s.image_size}: decimate the mesh or lower rend_size")
+        s = dataclasses.replace(s, tile_px=s.tile_px // 2)
+
+
+def bump_edge_settings(settings: RasterSettings, demand: int,
+                       safety: float = 1.3,
+                       buckets=EDGE_BUCKETS) -> RasterSettings:
+    """The next settings covering a demand measured mid-fit
+    (homan_tpu/render/rasterizer.py:1012): the smallest bucket above the
+    current edges_per_tile covering demand x safety, halving tile_px when
+    there is none (a smaller tile meets a subset of the edges, so the
+    demand stays an upper bound). Raises RuntimeError
+    when tile_px 16 cannot cover it."""
+    s = settings
+    need = int(np.ceil(demand * safety))
+    while True:
+        feasible = [b for b in buckets
+                    if need <= b and b > s.edges_per_tile]
+        if feasible:
+            return dataclasses.replace(s, edges_per_tile=feasible[0])
+        if s.tile_px <= 16 or s.tile_px // 2 > s.image_size:
+            raise RuntimeError(
+                f"edge budget unsatisfiable mid-fit: measured demand "
+                f"{demand} (need {need} with {safety}x headroom) exceeds "
+                f"the largest bucket {buckets[-1]} at tile_px={s.tile_px}; "
+                f"decimate the mesh or lower rend_size")
+        s = dataclasses.replace(s, tile_px=s.tile_px // 2)

@@ -65,6 +65,10 @@ FWD_TEST_OPS_PER_GROUP_SLOT = 13
 # (pixel group, valid slot) the group's new largest d2min 7.
 FWD_DIST_OPS_PER_PIXEL_SLOT = 37
 FWD_DMAX_OPS_PER_GROUP_SLOT = 7
+# The largest Ke the forward takes (csrc/shade.cu kMaxForwardSmem /
+# kRecordBytes): its records of one row, 64 bytes a slot, in 200 KiB of
+# shared memory. The wrapper raises above it (the kernel returns -1).
+FWD_MAX_KE = 200 * 1024 // 64
 # Per pixel, the backward's contribution math (base, wa, wb, 4 products).
 BWD_OPS_PER_PIXEL = 14
 

@@ -402,3 +402,31 @@ def test_stage_b_search_on_card_matches_cpu(cuda):
             assert g[k].device.type == "cuda"
             assert (g[k].cpu() - c[k]).abs().max().item() <= 2e-3
     assert abs(out["cuda"][0]["best_iou"] - out["cpu"][0]["best_iou"]) <= 1e-3
+
+
+@pytest.mark.parametrize("tp", [16, 64, 128])
+def test_shade_pair_takes_every_ke_up_to_the_slot_ceiling(cuda, tp):
+    """The derivation of the card's edge-slot ceiling: the forward's row
+    records of FWD_MAX_KE slots fit its shared memory at one row a block,
+    at every tile, and one slot more is refused; the backward takes any
+    Ke. The object's pack, its slots padded with empty ones."""
+    seg, anc, static = _pack(cuda, "object", 128, tp, 96)
+    for ke in (shade.FWD_MAX_KE, shade.FWD_MAX_KE + 1):
+        pad = torch.zeros(seg.shape[:3] + (ke - static.ke,), device=cuda)
+        pad[:, :, :4] = 99.0  # empty slots sit far away, invalid
+        big = torch.cat([seg, pad], -1).contiguous()
+        st = static._replace(ke=ke)
+        if ke > shade.FWD_MAX_KE:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                shade.shade_fwd(big, anc, st)
+            continue
+        k = shade.shade_fwd(big, anc, st, want_residuals=True)
+        p = shade.shade_fwd_plain(big, anc, st, True)
+        torch.testing.assert_close(k[0], p[0], atol=2e-5, rtol=0)
+        assert (k[1] == p[1]).float().mean().item() >= 0.999
+        gcot = torch.randn(k[0].shape, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+        g_k = shade.shade_bwd(k, gcot, st)
+        g_p = shade.shade_bwd_plain(p, gcot, st)
+        assert (g_k - g_p).abs().max().item() <= 3e-3 * g_p.abs().max().item()
+        assert not g_k[..., static.ke:].any()

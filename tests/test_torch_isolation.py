@@ -61,6 +61,30 @@ print("LOADED", bad)
 """
 
 
+_DRIVER_SCRIPT = """
+import os
+import sys
+import tempfile
+import numpy as np
+import chip_smoke
+from homan_tpu_torch.cli import fit_video
+
+with tempfile.TemporaryDirectory() as root:
+    chip_smoke.write_ho3d_tree(root, frames=4, obj_subdiv=1)
+    os.chdir(root)
+    out = fit_video.main(fit_video.get_args([
+        "--gt_masks", "1", "--frame_nb", "2", "--chunk_step", "1",
+        "--num_initializations", "4", "--num_obj_iterations", "1",
+        "--num_joint_iterations", "2", "--rend_size", "64",
+        "--result_root", "res"]), device="cpu")
+    assert os.path.exists("res/samples/00000000/joint_fit.npz")
+    assert np.isfinite(out[0]["final_loss"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -81,6 +105,15 @@ def test_fit_runs_without_jax_in_a_fresh_process():
 def test_stage_b_runs_without_jax_in_a_fresh_process():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _STAGE_B_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_driver_runs_without_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _DRIVER_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr

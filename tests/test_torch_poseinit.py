@@ -225,11 +225,12 @@ def test_prime_candidate_count_chunks_do_not_change_numerics():
     ev = [torch.from_numpy(x).expand((C,) + x.shape)
           for x in (target, keep, K_ROI)]
     r6, tr = torch.from_numpy(R0[..., :2].copy()), torch.from_numpy(t0)
-    full = TP._score_candidates(args[0], args[1], *ev, r6, tr, ts,
-                                candidate_chunk=C)
-    torch.testing.assert_close(
-        TP._score_candidates(args[0], args[1], *ev, r6, tr, ts,
-                             candidate_chunk=5), full, rtol=1e-5, atol=1e-6)
+    full, demand = TP._score_candidates(args[0], args[1], *ev, r6, tr, ts,
+                                        candidate_chunk=C)
+    ious5, demand5 = TP._score_candidates(args[0], args[1], *ev, r6, tr, ts,
+                                          candidate_chunk=5)
+    torch.testing.assert_close(ious5, full, rtol=1e-5, atol=1e-6)
+    assert demand.shape == () and int(demand5) == int(demand) > 0
 
 
 def test_score_candidates_matches_jax():
@@ -253,14 +254,15 @@ def test_score_candidates_matches_jax():
     ours = TP._score_candidates(
         torch.from_numpy(v), topo, *(torch.from_numpy(x[rep])
                                      for x in (targets, keeps, Ks)),
-        torch.from_numpy(r6), torch.from_numpy(t0), ts, candidate_chunk=5)
+        torch.from_numpy(r6), torch.from_numpy(t0), ts,
+        candidate_chunk=5)[0]
     np.testing.assert_allclose(t2n(ours), theirs,
                                atol=1.0 / (target.sum() - 1), rtol=0)
     grouped = TP._score_candidates(
         torch.from_numpy(v), topo, *(torch.from_numpy(x)
                                      for x in (targets, keeps, Ks)),
         torch.from_numpy(r6), torch.from_numpy(t0), ts, candidate_chunk=5,
-        group=4)
+        group=4)[0]
     assert torch.equal(grouped, ours)
 
 

@@ -253,3 +253,35 @@ def adversarial_depth_pack(tp=16, g=2, b=2, seed=0, lead=0):
         out[bi, :, :12] = faces.T[None]
         out[bi, :, 12] = 1.0
     return torch.from_numpy(out), DepthStatic(tp, S, g, kf)
+
+
+def ho3d_tree(root, frames=4, obj_subdiv=2):
+    """The synthetic HO-3D tree of chip_smoke.py (HO-3D's camera, the
+    synthetic MANO hand as a MANO pickle, a turning bumpy potato) under
+    `root`; returns root as a str."""
+    import chip_smoke
+    return chip_smoke.write_ho3d_tree(str(root), frames=frames,
+                                      obj_subdiv=obj_subdiv)
+
+
+def ho3d_kwargs(root):
+    """The HO3D dataset's paths inside a tree written by ho3d_tree."""
+    return dict(root=os.path.join(root, "local_data", "datasets"),
+                ycb_root=os.path.join(root, "local_data", "datasets",
+                                      "ycbmodels"),
+                mano_root=os.path.join(root, "extra_data", "mano"),
+                cache_folder=os.path.join(root, "cache"))
+
+
+@functools.lru_cache(maxsize=None)
+def ho3d_clip(root, frame_nb=3, chunk_step=1):
+    """Sample 0 of the port's HO3D (CPU) on a tree written by ho3d_tree:
+    (hand verts (T, 778, 3), object verts (T, V, 3), hand faces, object
+    faces, pixel K (T, 3, 3))."""
+    from homan_tpu_torch.data.ho3d import HO3D
+    ds = HO3D(frame_nb=frame_nb, chunk_step=chunk_step, device="cpu",
+              **ho3d_kwargs(root))
+    s = ds[0]
+    return (s["hands"][0]["verts3d"], s["objects"][0]["verts3d"],
+            ds.mano.faces("right").numpy(), s["objects"][0]["faces"][0],
+            s["camera"]["K"])
