@@ -105,6 +105,19 @@ Phases, each fatal on failure:
      and 5 steps, 64^2) on the card and on the CPU: joint states within
      3e-3 of each array's maximum, instance-mask pixels that differ
      counted (at most 0.1% of the mask pixels).
+  6. the driver on cached detections, --evidence_root at get_args' defaults
+     on the same synthetic clip: one CachedEvidence record a frame written
+     by the port's adapters (write_evidence_tree: the instance render's
+     masks cut to HO-3D's 480 x 640 frame, FrankMocap-layout hand estimates
+     with 2 px of seeded noise on the 2D points); twice, counts set to 0
+     just before each run and read just after, which must equal the path's
+     count (driver_launches); a third run in one torch.profiler window for
+     the device's busy and idle share; gates as phase 5's (no instance
+     render here); the shade pair and the voxelizer held against their
+     plain versions and timed at every input shape the second run handed
+     them (the kernels line's `cached` keys); a 3-frame clip (24
+     candidates, 5 and 5 steps, 64^2) on the card and on the CPU from one
+     evidence tree: joint states within 3e-3 of each array's maximum.
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -922,6 +935,47 @@ def profile_window(torch, run, steps, label):
     return out
 
 
+def profile_clip(torch, run, label):
+    """One driver clip, run(), in a torch.profiler window of CUDA activity:
+    its wall, the device's busy time (the union of its kernel, copy and set
+    intervals) and idle share, the kernel launches, and the kernels that
+    take the most device time. Read from the raw trace: the profiler's own
+    aggregation (key_averages) takes minutes over a clip's ~10^6 events."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+    cuda_t = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name, launches = [], defaultdict(int), 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda_t:
+            spans.append((e.start_ns(), e.end_ns()))
+            by_name[e.name()[:60]] += e.duration_ns()
+        elif e.name().startswith("cudaLaunchKernel"):
+            launches += 1
+    busy_ns, end = 0, None
+    for start, stop in sorted(spans):
+        if end is None or start >= end:
+            busy_ns += stop - start
+            end = stop
+        elif stop > end:
+            busy_ns += stop - end
+            end = stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_s": wall, "device_busy_s": busy_ns / 1e9,
+           "device_idle_share": 1.0 - busy_ns / 1e9 / wall,
+           "device_events": len(spans), "launch_calls": launches,
+           "top_kernels_ms": [[name, ns / 1e6] for name, ns in top]}
+    print(f"profile [{label}] (torch.profiler, CUDA activity): "
+          + json.dumps(out), flush=True)
+    return out
+
+
 def profile_steps(torch, joint, scene, settings, iters, label, **fit_kw):
     """profile_window over `iters` steps of a stage-C fit."""
     return profile_window(torch, lambda: joint.optimize_hand_object(
@@ -981,10 +1035,10 @@ def small_fit_pair(torch, joint, scene, settings, iters, label, expect,
     """The same small fit on the card and on the CPU (plain versions) from
     the same inputs: totals within rtol 3e-3; kernels launched on the card
     only."""
-    _, h_gpu, _, l_gpu = run_fit(torch, joint, scene, settings, iters,
-                                 "cuda", **dict(fit_kw))
-    _, h_cpu, _, l_cpu = run_fit(torch, joint, scene, settings, iters,
-                                 "cpu", **dict(fit_kw))
+    _, h_gpu, w_gpu, l_gpu = run_fit(torch, joint, scene, settings, iters,
+                                     "cuda", **dict(fit_kw))
+    _, h_cpu, w_cpu, l_cpu = run_fit(torch, joint, scene, settings, iters,
+                                     "cpu", **dict(fit_kw))
     for name, n in expect.items():
         check(l_gpu[name] == n, f"{label}: card {name} launches "
               f"{l_gpu[name]} != {n}")
@@ -992,7 +1046,7 @@ def small_fit_pair(torch, joint, scene, settings, iters, label, expect,
     rel = float(((h_gpu["loss"] - h_cpu["loss"]).abs()
                  / h_cpu["loss"].abs()).max())
     print(f"{label}, card vs CPU plain path: {iters}-step loss max rel err "
-          f"{rel:.3g}", flush=True)
+          f"{rel:.3g} (card {w_gpu:.1f} s, CPU {w_cpu:.1f} s)", flush=True)
     check(rel <= 3e-3, f"{label}: card and CPU fits disagree: rel err {rel}")
     return rel
 
@@ -1373,15 +1427,88 @@ def write_ho3d_tree(root, frames=40, seed=0, obj_subdiv=3):
     return root
 
 
+HO3D_FRAME_H = 480  # HO-3D's frames are 640 wide, 480 high
+
+
+def write_evidence_tree(evidence_root, argv, seed=0, device="cuda"):
+    """Record, with the port's adapters, one CachedEvidence record for every
+    frame of every sample the driver fits with `argv` (fit_video flags; run
+    from the root of a write_ho3d_tree tree), as a detector run would leave
+    them: the hand and object instance masks of the port's z-buffered
+    render at the sized Kf (gtevidence.render_instance_masks), cut to
+    HO-3D's 480 x 640 frame, tagged with class_id and hand_side; hand
+    estimates in FrankMocap's layout, as the JAX package's tests record
+    them: the GT hand's vertices, the rest hand's Procrustes rotation and
+    translation onto them, PCA pose, mano_rot, mano_trans and betas zero,
+    and the projected vertices with 2 px of noise from
+    np.random.RandomState(seed). Returns the instance renders' budgets, one
+    per sample."""
+    import torch
+
+    from homan_tpu_torch.cli import fit_video
+    from homan_tpu_torch.core.mano import mano_forward
+    from homan_tpu_torch.data.factory import get_dataset
+    from homan_tpu_torch.frontend import gtevidence
+    from homan_tpu_torch.frontend.adapters import record_cached_evidence
+    from homan_tpu_torch.frontend.cachedfit import frame_key
+    args = fit_video.get_args(list(argv))
+    ds, image_size = get_dataset(args.dataset, split=args.split,
+                                 frame_nb=args.frame_nb,
+                                 chunk_step=args.chunk_step,
+                                 mano_root=args.mano_root, device=device)
+    hand_faces = ds.mano.faces("right").cpu().numpy()
+    with torch.no_grad():
+        zeros = torch.zeros((1, 48), device=device)
+        rest = mano_forward(ds.mano.params["right"], zeros[:, :10],
+                            zeros[:, :3], zeros[:, 3:])["verts"][0]
+    rest = rest.cpu().numpy()
+    rng = np.random.RandomState(seed)
+    budgets = []
+    for idx in range(args.data_offset, len(ds), args.data_step):
+        a = ds[idx]
+        hand = np.asarray(a["hands"][0]["verts3d"], np.float32)
+        obj = np.asarray(a["objects"][0]["verts3d"], np.float32)
+        K = np.asarray(a["camera"]["K"], np.float64)
+        (hand_m, obj_m), budget = gtevidence.render_instance_masks(
+            [hand, obj], [hand_faces, a["objects"][0]["faces"][0]], K,
+            image_size, device=device)
+        budgets.append(budget)
+        for t, fid in enumerate(a["frame_idxs"]):
+            hv = hand[t]
+            proj = hv @ K[t].astype(np.float32).T
+            uv = proj[:, :2] / proj[:, 2:]
+            R, tr = gtevidence.procrustes_rigid(rest, hv)
+            mask = hand_m[t, :HO3D_FRAME_H]
+            person = {
+                "bboxes": gtevidence.mask_to_bbox(mask)[None],
+                "cams": np.zeros((1, 3), np.float32),
+                "verts": hv[None],
+                "verts2d": (uv + rng.randn(*uv.shape) * 2.0).astype(
+                    np.float32)[None],
+                "rotations": R[None],
+                "translations": tr[None, None],
+                "mano_pca_pose": np.zeros((1, 16), np.float32),
+                "mano_rot": np.zeros((1, 3), np.float32),
+                "mano_trans": np.zeros((1, 3), np.float32),
+                "mano_betas": np.zeros((1, 10), np.float32),
+                "masks": mask[None],
+                "hand_side": ["right_hand"],
+            }
+            record_cached_evidence(evidence_root, frame_key(a["seq_idx"], fid),
+                                   person, obj_m[t, :HO3D_FRAME_H])
+    return budgets
+
+
 # Phase 5: the fit_video driver at get_args' defaults (10 frames, 500
 # candidates, 50 and 201 steps, rend_size 256) on the synthetic clip, and a
 # small clip (3 frames, 24 candidates, 5 and 5 steps, rend_size 64) on the
 # card and on the CPU.
-DRIVER_ARGV = ["--gt_masks", "1", "--chunk_step", "4"]
-SMALL_DRIVER_ARGV = ["--gt_masks", "1", "--frame_nb", "3", "--chunk_step",
-                     "1", "--num_initializations", "24",
-                     "--num_obj_iterations", "5", "--num_joint_iterations",
-                     "5", "--rend_size", "64"]
+CLIP = ["--chunk_step", "4"]
+SMALL_CLIP = ["--frame_nb", "3", "--chunk_step", "1"]
+SMALL_FIT = ["--num_initializations", "24", "--num_obj_iterations", "5",
+             "--num_joint_iterations", "5", "--rend_size", "64"]
+DRIVER_ARGV = ["--gt_masks", "1"] + CLIP
+SMALL_DRIVER_ARGV = ["--gt_masks", "1"] + SMALL_CLIP + SMALL_FIT
 DRIVER_METRICS = ("add-s_obj", "chamfer_dists_obj", "verts_dists_hand",
                   "pen_depths")
 
@@ -1430,8 +1557,9 @@ def driver_outputs(folder):
 def check_driver_run(label, folder, summary):
     """The driver's gates on one run: its files, a finite and falling loss,
     no edge-budget excess on the kept fit, the instance render's face
-    budget covering the demand re-measured on the clip, stage B's demand
-    within its budget and best IoU >= 0.9, every metric finite."""
+    budget covering its demand (the GT-mask path; the cached path renders
+    none), stage B's demand within its budget and best IoU >= 0.9, every
+    metric finite."""
     import os
     for name in ("indep_fit.pkl", "joint_fit.npz", "results.pkl"):
         check(os.path.exists(os.path.join(folder, "samples", "00000000",
@@ -1453,9 +1581,9 @@ def check_driver_run(label, folder, summary):
     check(all(np.isfinite(v).all() for v in state.values()),
           f"{label}: non-finite joint state")
     b = summary["budgets"]
-    im, sb = b["instance_masks"], b["stage_b"]
-    check(im["faces_per_tile"] >= im["face_demand"][im["tile_px"]],
-          f"{label}: instance render Kf {im} below its demand")
+    im, sb = b.get("instance_masks"), b["stage_b"]
+    check(im is None or im["faces_per_tile"] >= im["face_demand"][
+        im["tile_px"]], f"{label}: instance render Kf {im} below its demand")
     check(sb["edge_demand"] <= sb["edge_capacity"],
           f"{label}: stage B dropped contour edges: {sb}")
     best = indep["object_parameters"][0]["best_iou"]
@@ -1574,6 +1702,85 @@ def driver_kernel_checks(torch, got):
     return shade_rows, vox_rows
 
 
+def driver_run(torch, argv, label, folder, capture=False, profile=False):
+    """One fit_video run at `argv` (from the working folder, results in
+    `folder`) with the launch counts set to 0 just before it and read just
+    after, held to the path's count (driver_launches); its wall and stage
+    timers printed; the driver's gates (check_driver_run). `capture`
+    records the kernels' inputs (capture_driver_inputs); `profile` runs it
+    in one torch.profiler window (profile_clip) instead of timing it.
+    Returns (record, args, summary, results, captured inputs or None,
+    profile window or None)."""
+    import contextlib
+
+    from homan_tpu_torch.cli import fit_video
+    args = fit_video.get_args(argv + ["--result_root", folder])
+    window = wall = None
+    reset_counts()
+    with (capture_driver_inputs(torch) if capture
+          else contextlib.nullcontext()) as got:
+        if profile:
+            ran = []
+            window = profile_clip(torch, lambda: ran.append(
+                fit_video.main(args, device="cuda")), label)
+            summary = ran[0]
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = fit_video.main(args, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(summary) == 1, f"{label}: {len(summary)} samples")
+    summary = summary[0]
+    expect = driver_launches(args, summary["budgets"])
+    print(f"{label}: " + (f"{wall:.3f} s a clip" if wall else "profiled")
+          + "; launches " + json.dumps(counts), flush=True)
+    for name, sec in sorted(summary["timers"].items(),
+                            key=lambda kv: -kv[1]):
+        print(f"{label} timer {name}: {sec:.3f} s"
+              + (f" ({sec / wall:.1%})" if wall else ""), flush=True)
+    check(counts == expect, f"{label}: launches {counts}, the path's count "
+          f"is {expect}")
+    indep, _, res = check_driver_run(label, folder, summary)
+    record = {"wall_s": wall, "timers": summary["timers"],
+              "launches": counts,
+              "best_iou": indep["object_parameters"][0]["best_iou"],
+              "loss": [res["losses"]["loss"][0], res["losses"]["loss"][-1]]}
+    return record, args, summary, res, got, window
+
+
+def small_driver_pair(argv, label):
+    """The small clip at `argv` on the card and on the CPU (plain versions)
+    from the same inputs: the card's launches the path's count, none on the
+    CPU, the joint states within 3e-3 of each array's maximum. Returns
+    ({"cuda", "cpu": (indep, joint state, results)}, the relative errors)."""
+    from homan_tpu_torch.cli import fit_video
+    small = {}
+    for d in ("cuda", "cpu"):
+        folder = f"{label.replace(' ', '_')}_{d}"
+        args = fit_video.get_args(argv + ["--result_root", folder])
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = fit_video.main(args, device=d)[0]
+        counts = read_counts()
+        print(f"{label} on {d}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        expect = (driver_launches(args, summary["budgets"]) if d == "cuda"
+                  else dict.fromkeys(counts, 0))
+        check(counts == expect, f"{label}: {d} launches {counts}, expected "
+              f"{expect}")
+        small[d] = driver_outputs(folder)
+    cs = small["cpu"][1]
+    err = {k: float(np.abs(small["cuda"][1][k] - cs[k]).max()
+                    / max(np.abs(cs[k]).max(), 1e-30)) for k in cs}
+    print(f"{label}, card vs CPU plain path: joint state max rel err "
+          + json.dumps(err), flush=True)
+    check(max(err.values()) <= 3e-3, f"{label}: card and CPU joint states "
+          f"differ: {err}")
+    return small, err
+
+
 def driver_phase(torch):
     """Phase 5: the fit_video driver, --gt_masks 1 at get_args' defaults,
     twice on the synthetic HO-3D clip with the launch counts read around
@@ -1581,11 +1788,9 @@ def driver_phase(torch):
     second run handed it; then the small clip on the card and on the CPU.
     Returns the result dict, the second run's launch counts and the kernel
     rows at the driver's shapes (shade, voxelizer)."""
-    import contextlib
     import os
     import tempfile
 
-    from homan_tpu_torch.cli import fit_video
     out = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
@@ -1594,36 +1799,11 @@ def driver_phase(torch):
         try:
             runs = []
             for i in range(2):
-                args = fit_video.get_args(DRIVER_ARGV
-                                          + ["--result_root", f"run{i}"])
-                with (capture_driver_inputs(torch) if i
-                      else contextlib.nullcontext()) as got:
-                    reset_counts()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    summary = fit_video.main(args, device="cuda")
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    counts = read_counts()
-                check(len(summary) == 1, f"driver: {len(summary)} samples")
-                summary = summary[0]
-                expect = driver_launches(args, summary["budgets"])
-                print(f"driver run {i + 1}: {wall:.3f} s a clip; launches "
-                      + json.dumps(counts), flush=True)
-                for name, sec in sorted(summary["timers"].items(),
-                                        key=lambda kv: -kv[1]):
-                    print(f"driver run {i + 1} timer {name}: {sec:.3f} s "
-                          f"({sec / wall:.1%})", flush=True)
-                check(counts == expect, f"driver run {i + 1}: launches "
-                      f"{counts}, the path's count is {expect}")
-                indep, _, res = check_driver_run(f"driver run {i + 1}",
-                                                 f"run{i}", summary)
-                runs.append({"wall_s": wall, "timers": summary["timers"],
-                             "launches": counts,
-                             "best_iou": indep["object_parameters"][0][
-                                 "best_iou"],
-                             "loss": [res["losses"]["loss"][0],
-                                      res["losses"]["loss"][-1]]})
+                record, args, summary, res, got, _ = driver_run(
+                    torch, DRIVER_ARGV, f"driver run {i + 1}", f"run{i}",
+                    capture=i == 1)
+                runs.append(record)
+            counts = record["launches"]
             shade_rows, vox_rows = driver_kernel_checks(torch, got)
             check(any(not r["fwd_only"] for r in shade_rows.values())
                   and any(r["fwd_only"] for r in shade_rows.values())
@@ -1651,23 +1831,8 @@ def driver_phase(torch):
                    "jax_default_pixels_differing_of_sized": lost}
 
             # The small clip on the card and on the CPU.
-            small = {}
-            for d in ("cuda", "cpu"):
-                reset_counts()
-                args = fit_video.get_args(SMALL_DRIVER_ARGV
-                                          + ["--result_root", f"small_{d}"])
-                summ = fit_video.main(args, device=d)[0]
-                small[d] = driver_outputs(f"small_{d}")
-                small[d + "_counts"] = read_counts()
-                small[d + "_expect"] = driver_launches(args, summ["budgets"])
-            check(small["cuda_counts"] == small["cuda_expect"],
-                  f"small driver: card launches {small['cuda_counts']}, "
-                  f"expected {small['cuda_expect']}")
-            check(not any(small["cpu_counts"].values()),
-                  f"small driver: CPU run launched {small['cpu_counts']}")
-            (gi, gs, _), (ci, cs, _) = small["cuda"], small["cpu"]
-            err = {k: float(np.abs(gs[k] - cs[k]).max()
-                            / max(np.abs(cs[k]).max(), 1e-30)) for k in cs}
+            small, err = small_driver_pair(SMALL_DRIVER_ARGV, "small driver")
+            (gi, _, _), (ci, _, _) = small["cuda"], small["cpu"]
             masks = [("hand", gi["person_parameters"]["masks"],
                       ci["person_parameters"]["masks"])] + [
                 (f"object {t}", g["masks"], c["masks"]) for t, (g, c) in
@@ -1676,12 +1841,8 @@ def driver_phase(torch):
             diff = {name: int((np.asarray(g) != np.asarray(c)).sum())
                     for name, g, c in masks}
             total = sum(int(np.asarray(c).sum()) for _, _, c in masks)
-            print("small driver, card vs CPU plain path: joint state max "
-                  "rel err " + json.dumps(err) + "; instance-mask pixels "
-                  f"that differ {json.dumps(diff)} of {total} mask pixels",
-                  flush=True)
-            check(max(err.values()) <= 3e-3, f"small driver: card and CPU "
-                  f"joint states differ: {err}")
+            print(f"small driver: instance-mask pixels that differ "
+                  f"{json.dumps(diff)} of {total} mask pixels", flush=True)
             check(sum(diff.values()) <= 1e-3 * total, f"small driver: "
                   f"instance masks differ on {diff} pixels")
             out["card_vs_cpu"] = {"state_rel_err": err,
@@ -1690,6 +1851,76 @@ def driver_phase(torch):
         finally:
             os.chdir(cwd)
     return out, counts, shade_rows, vox_rows
+
+
+def cached_phase(torch):
+    """Phase 6: the fit_video driver with --evidence_root at get_args'
+    defaults on the synthetic HO-3D clip, from the evidence
+    write_evidence_tree records with the port's adapters: twice, the launch
+    counts read around each run and held to the path's count; each kernel
+    against its plain version at every shape the second run handed it; a
+    third run in one torch.profiler window (device busy and idle share);
+    then the small clip on the card and on the CPU. Returns the result
+    dict, the second run's launch counts and the kernel rows at this path's
+    shapes (shade, voxelizer)."""
+    import os
+    import tempfile
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_ho3d_tree(root, frames=40)
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            ev_budgets = write_evidence_tree("ev", CLIP, device="cuda")
+            print(f"cached evidence: {len(ev_budgets)} clip(s) recorded in "
+                  f"{time.perf_counter() - t0:.3f} s; instance render "
+                  + json.dumps(ev_budgets), flush=True)
+            # Two timed runs, the second's kernel inputs recorded, then a
+            # third in one profiler window (device busy and idle share).
+            runs, got, window = [], None, None
+            for i in range(3):
+                record, args, summary, res, got_i, win = driver_run(
+                    torch, CLIP + ["--evidence_root", "ev"],
+                    f"cached driver run {i + 1}", f"cached{i}",
+                    capture=i == 1, profile=i == 2)
+                check("instance_masks" not in summary["budgets"],
+                      "cached driver: it rendered instance masks")
+                runs.append(record)
+                got, window = got_i or got, win or window
+            t0 = time.perf_counter()
+            shade_rows, vox_rows = driver_kernel_checks(torch, got)
+            print(f"cached driver: kernel checks in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            check(any(not r["fwd_only"] for r in shade_rows.values())
+                  and any(r["fwd_only"] for r in shade_rows.values())
+                  and vox_rows, "cached driver: no kernel inputs captured: "
+                  f"{sorted(shade_rows)} {sorted(vox_rows)}")
+            metrics = {key: float(np.mean(res["metrics"][key]))
+                       for k in DRIVER_METRICS for key in (k, k + "_init")}
+            b = summary["budgets"]
+            print("cached driver budgets: " + json.dumps(
+                {"stage_b": b["stage_b"], "stage_c": b["stage_c"]}),
+                flush=True)
+            print("cached driver metrics (means over the clip's frames): "
+                  + json.dumps(metrics), flush=True)
+            out = {"runs": runs, "budgets": b, "metrics": metrics,
+                   "evidence_instance_render": ev_budgets,
+                   "profiled": window}
+
+            # The small clip on the card and on the CPU, on one evidence
+            # tree.
+            write_evidence_tree("ev_small", SMALL_CLIP, device="cuda")
+            small, err = small_driver_pair(
+                SMALL_CLIP + SMALL_FIT + ["--evidence_root", "ev_small"],
+                "small cached driver")
+            iou = [float(small[d][0]["object_parameters"][0]["best_iou"])
+                   for d in ("cuda", "cpu")]
+            print(f"small cached driver: best IoU {iou}", flush=True)
+            out["card_vs_cpu"] = {"state_rel_err": err, "best_iou": iou}
+        finally:
+            os.chdir(cwd)
+    return out, runs[1]["launches"], shade_rows, vox_rows
 
 
 def main(argv=None) -> int:
@@ -1718,6 +1949,12 @@ def main(argv=None) -> int:
     from homan_tpu_torch.render import rasterizer as R
 
     # 1. Set-up -------------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def phase_done(n):
+        print(f"phase {n} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1733,6 +1970,8 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas [{name}]: {line.strip()}", flush=True)
+
+    phase_done(1)
 
     # 2. Kernels vs plain versions --------------------------------------------
     t0 = time.perf_counter()
@@ -1836,6 +2075,8 @@ def main(argv=None) -> int:
               "run", flush=True)
         return 0
 
+    phase_done(2)
+
     # 3. The paths ----------------------------------------------------------
     # 3a. The stage-C fit at the headline shape.
     walls1, counts1, hist, _ = timed_fit_pair(
@@ -1876,6 +2117,8 @@ def main(argv=None) -> int:
     step3 = profile_steps(torch, joint, scene2, roi2, 10, "depth fit",
                           **depth_kw)
 
+    phase_done("3abc")
+
     # 3d. Kernel paths vs plain paths: small fits on the card and on the
     # CPU from the same inputs (the CPU runs the plain versions).
     small = make_synthetic_scene(random_rotation(1), seed=1, frame_nb=3,
@@ -1895,11 +2138,19 @@ def main(argv=None) -> int:
                    full_settings=R.RasterSettings(128, tile_px=32,
                                                   faces_per_tile=2048))
 
+    phase_done(3)
+
     # 4. Stage B: the object-pose search (bench.py bench_stageb) ------------
     stage_b, b_rows = stage_b_phase(torch, R)
+    phase_done(4)
 
     # 5. The fit_video driver, --gt_masks 1 (cli/fit_video.py) ------------
     driver, driver_counts, d_shade, d_vox = driver_phase(torch)
+    phase_done(5)
+
+    # 6. The fit_video driver on cached detections, --evidence_root --------
+    cached, cached_counts, c_shade, c_vox = cached_phase(torch)
+    phase_done(6)
 
     # Result lines ------------------------------------------------------------
     h = results["fit"]
@@ -2000,31 +2251,37 @@ def main(argv=None) -> int:
                 "max_abs_err": r["sil_err" if fwd else "gseg_err"],
                 "library_ms": None if fwd else min(
                     lib["library_index_add_ms"], lib["library_einsum_ms"])}
-    # The driver's own shapes (phase 5), under "driver": each shade render
-    # with residuals and the backward, or forward-only, and the voxelizer
-    # of the interaction metrics.
-    for k in kernels[:2]:
-        fwd = k["name"] == "shade_fwd"
-        k["driver"] = {}
-        for name, r in d_shade.items():
-            if r["fwd_only"] and not fwd:
-                continue
-            pre = ("fwd_only_" if r["fwd_only"] else "fwd_") if fwd \
-                else "bwd_"
-            lib = r["bwd_library"]
-            k["driver"][name] = {
-                "ms": r[pre + "ms"], "device_ms": r[pre + "device_ms"],
-                "plain_ms": r["fwd_plain_ms" if fwd else "bwd_plain_ms"],
-                "bound_ms": r[pre + "bound_ms"],
-                "bound_by": r[pre + "bound_by"],
-                "max_abs_err": r["sil_err" if fwd else "gseg_err"],
-                "library_ms": None if fwd else min(
-                    lib["library_index_add_ms"], lib["library_einsum_ms"])}
-    kernels[4]["driver"] = {
-        name: {"ms": r["ms"], "device_ms": r["device_ms"],
-               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "max_abs_err": r["phi_err"],
-               "library_ms": None} for name, r in d_vox.items()}
+    # The drivers' own shapes, under "driver" (phase 5, GT masks) and
+    # "cached" (phase 6, cached detections): each shade render with
+    # residuals and the backward, or forward-only, and the voxelizer of the
+    # interaction metrics.
+    for k in kernels:
+        k["launches_per_cached_clip"] = cached_counts[k["name"]]
+    for part, shade_rows, vox_rows in (("driver", d_shade, d_vox),
+                                       ("cached", c_shade, c_vox)):
+        for k in kernels[:2]:
+            fwd = k["name"] == "shade_fwd"
+            k[part] = {}
+            for name, r in shade_rows.items():
+                if r["fwd_only"] and not fwd:
+                    continue
+                pre = ("fwd_only_" if r["fwd_only"] else "fwd_") if fwd \
+                    else "bwd_"
+                lib = r["bwd_library"]
+                k[part][name] = {
+                    "ms": r[pre + "ms"], "device_ms": r[pre + "device_ms"],
+                    "plain_ms": r["fwd_plain_ms" if fwd else "bwd_plain_ms"],
+                    "bound_ms": r[pre + "bound_ms"],
+                    "bound_by": r[pre + "bound_by"],
+                    "max_abs_err": r["sil_err" if fwd else "gseg_err"],
+                    "library_ms": None if fwd else min(
+                        lib["library_index_add_ms"],
+                        lib["library_einsum_ms"])}
+        kernels[4][part] = {
+            name: {"ms": r["ms"], "device_ms": r["device_ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "max_abs_err": r["phi_err"],
+                   "library_ms": None} for name, r in vox_rows.items()}
     fits = {
         "fit": {"frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
                 "ke": ke_fit, "first_wall_s": walls1[0],
@@ -2043,10 +2300,11 @@ def main(argv=None) -> int:
             "ms_per_step": walls3[1] / ITERS3 * 1e3, "profiled": step3},
         "stage_b": stage_b,
         "driver": driver,
+        "cached_driver": cached,
     }
     rows = [(k["name"], k) for k in kernels] + [
         (f"{k['name']} {name}", r) for k in kernels
-        for part in ("stage_b", "driver")
+        for part in ("stage_b", "driver", "cached")
         for name, r in k.get(part, {}).items() if isinstance(r, dict)]
     for label, r in rows:
         for key in ("ms", "device_ms"):

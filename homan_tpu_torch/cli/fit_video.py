@@ -1,7 +1,9 @@
 """Fit hand and object poses over dataset clips: the main driver
-(homan_tpu/cli/fit_video.py), on the GT-mask evidence path.
+(homan_tpu/cli/fit_video.py).
 
-  stage A: GT instance masks and hand evidence (frontend/gtevidence.py);
+  stage A: GT instance masks and hand evidence (--gt_masks 1,
+           frontend/gtevidence.py), or recorded detections replayed
+           (--evidence_root DIR, frontend/cachedfit.py);
   stage B: the object-pose search (fit/poseinit.py);
   stage C: the joint hand-object fit (fit/joint.py), its edge budget sized
            from the measured demand and re-run with a larger one when a
@@ -12,12 +14,13 @@
 Run on the card:
   python -m homan_tpu_torch.cli.fit_video --dataset ho3d --split val \\
       --gt_masks 1 --frame_nb 10 --num_initializations 500
+  python -m homan_tpu_torch.cli.fit_video --dataset core50 \\
+      --evidence_root DIR
 or on the CPU from Python: main(get_args([...]), device="cpu").
 
-Not ported yet, and refused with NotImplementedError: --evidence_root
-(cached detections, ROADMAP.md Queue 1 item 13), --frames_sharded 1 (item
-19) and --collision_mode tritri (item 17). The overlay renders and videos
-come with item 18: this driver renders none.
+Not ported yet, and refused with NotImplementedError: --frames_sharded 1
+(ROADMAP.md Queue 1 item 19) and --collision_mode tritri (item 17). The
+overlay renders and videos come with item 18: this driver renders none.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from homan_tpu_torch.data.factory import get_dataset
 from homan_tpu_torch.eval import pointmetrics
 from homan_tpu_torch.fit import joint, postprocess
 from homan_tpu_torch.fit import model as M
-from homan_tpu_torch.frontend import gtevidence
+from homan_tpu_torch.frontend import cachedfit, gtevidence
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                auto_edge_settings,
                                                bump_edge_settings)
@@ -77,8 +80,9 @@ def get_args(argv=None):
     parser.add_argument("--only_missing", choices=[0, 1], type=int)
     parser.add_argument("--gt_masks", choices=[0, 1], default=0, type=int)
     parser.add_argument("--evidence_root", type=str,
-                        help="cached detections; not ported yet (ROADMAP.md "
-                             "Queue 1 item 13): raises NotImplementedError")
+                        help="folder of per-frame CachedEvidence records "
+                             "(frontend/adapters.py record_cached_evidence)"
+                             ", replayed as stage A's evidence")
     parser.add_argument("--hand_checkpoint",
                         default="extra_data/hand_module/pretrained_weights/"
                                 "pose_shape_best.pth",
@@ -215,11 +219,6 @@ def build_joint_inputs(person_parameters, object_parameters, obj_verts_can,
 
 def refuse_unported(args):
     """NotImplementedError for the flags whose code is not ported yet."""
-    if args.evidence_root:
-        raise NotImplementedError(
-            "--evidence_root (cached detections: frontend/cachedfit.py, "
-            "evidence.py, assign.py, adapters.py) is not ported yet: "
-            "ROADMAP.md Queue 1 item 13")
     if args.frames_sharded:
         raise NotImplementedError(
             "--frames_sharded 1 (parallel/frames.py) is not ported yet: "
@@ -345,15 +344,22 @@ def main(args, device=None):
                 ck = np.load(os.path.join(resume_folder, "joint_fit.npz"))
                 state_override = {k: ck[k] for k in ck.files}
         else:
-            if not args.gt_masks:
+            if not args.gt_masks and not args.evidence_root:
                 raise SystemExit(
-                    "need --gt_masks 1 (no detector networks are bundled; "
-                    "--evidence_root is not ported yet)")
+                    "need --gt_masks 1 or --evidence_root (no detector "
+                    "networks are bundled)")
             with timers.time("stageAB_evidence_poseinit", sync=True):
-                indep = gtevidence.prepare_independent_fit(
-                    annots, args, dataset, mano_layer, image_size,
-                    rend_size=args.rend_size, sample_folder=sample_folder,
-                    device=device)
+                if args.gt_masks:
+                    indep = gtevidence.prepare_independent_fit(
+                        annots, args, dataset, mano_layer, image_size,
+                        rend_size=args.rend_size,
+                        sample_folder=sample_folder, device=device)
+                else:
+                    indep = cachedfit.prepare_independent_fit_cached(
+                        annots, args, mano_layer, image_size,
+                        rend_size=args.rend_size,
+                        evidence_root=args.evidence_root,
+                        sample_folder=sample_folder, device=device)
             with timers.time("save_indep"):
                 with open(indep_fit_path, "wb") as f:
                     pickle.dump(indep, f)

@@ -37,6 +37,16 @@ def save_obj(path: str, verts: np.ndarray, faces: np.ndarray):
             f.write(f"f {face[0] + 1:d} {face[1] + 1:d} {face[2] + 1:d}\n")
 
 
+def normalize_to_inscribed_sphere(verts: np.ndarray, scale: float = 1.0):
+    """Centre on the box centre and scale so that max |v| = scale / 2 (the
+    mesh fits a sphere of diameter `scale` meters)."""
+    verts = np.asarray(verts, np.float64)
+    center = (verts.max(0) + verts.min(0)) / 2
+    centered = verts - center
+    radius = np.linalg.norm(centered, axis=1).max()
+    return (centered / radius * (scale / 2)).astype(np.float32)
+
+
 def icosphere(subdivisions: int = 2, radius: float = 1.0):
     """Procedural icosphere (V, 3) float32, (F, 3) int32."""
     t = (1.0 + np.sqrt(5.0)) / 2.0

@@ -29,16 +29,14 @@ import pytest
 import torch
 
 from homan_tpu.cli import fit_video as JF
-from homan_tpu.core import geometry as jgeo
 from homan_tpu.frontend import gtevidence as jgt
 from homan_tpu.render import rasterizer as jr
 from homan_tpu_torch.cli import fit_video as TF
-from homan_tpu_torch.core import geometry as tgeo
 from homan_tpu_torch.core.mano import ManoLayer
 from homan_tpu_torch.fit import joint, postprocess
 from homan_tpu_torch.frontend import gtevidence as tgt
 
-from torch_port_common import ho3d_tree
+from torch_port_common import ho3d_tree, host_tree, inject_jax_rotations
 
 ARGV = ["--gt_masks", "1", "--frame_nb", "3", "--chunk_step", "1",
         "--num_initializations", "24", "--num_obj_iterations", "5",
@@ -46,29 +44,10 @@ ARGV = ["--gt_masks", "1", "--frame_nb", "3", "--chunk_step", "1",
         "--viz_step", "0"]
 
 
-def _inject_jax_rotations(monkeypatch, n=24):
-    rots = np.array(jgeo.random_rotations(jax.random.PRNGKey(0), n))
-    monkeypatch.setattr(
-        tgeo, "random_rotations",
-        lambda n_, generator=None, upright=False, device=None:
-        torch.from_numpy(rots[:n_]).to(device))
-
-
-def _host(x):
-    """A pickled payload with every JAX array as numpy."""
-    if isinstance(x, dict):
-        return {k: _host(v) for k, v in x.items()}
-    if isinstance(x, list):
-        return [_host(v) for v in x]
-    if isinstance(x, jax.Array):
-        return np.asarray(x)
-    return x
-
-
 def _load(folder):
     sample = os.path.join(folder, "samples", "00000000")
     with open(os.path.join(sample, "indep_fit.pkl"), "rb") as f:
-        indep = _host(pickle.load(f))
+        indep = host_tree(pickle.load(f))
     ck = np.load(os.path.join(sample, "joint_fit.npz"))
     with open(os.path.join(sample, "results.pkl"), "rb") as f:
         res = pickle.load(f)
@@ -91,7 +70,7 @@ def runs(tmp_path_factory):
     try:
         mp.chdir(tree)
         mp.setenv("HOMAN_TPU_DISABLE_PREWARM", "1")
-        _inject_jax_rotations(mp)
+        inject_jax_rotations(mp)
         port = TF.main(TF.get_args(ARGV + ["--result_root", "port"]),
                        device="cpu")
         kf = port[0]["budgets"]["instance_masks"]["face_demand"][64]
@@ -182,7 +161,7 @@ def _jax_chain_inputs(tree):
     it, and the JAX driver's final state."""
     with open(os.path.join(tree, "jax", "samples", "00000000",
                            "indep_fit.pkl"), "rb") as f:
-        indep = _host(pickle.load(f))
+        indep = host_tree(pickle.load(f))
     mano = ManoLayer.from_folder(os.path.join(tree, "extra_data", "mano"),
                                  device="cpu")
     from homan_tpu_torch.data.ho3d import HO3D
@@ -254,9 +233,9 @@ def test_only_missing_skips_and_resume_refits_from_the_checkpoint(runs):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--evidence_root", "x"], "item 13"), (["--frames_sharded", "1"],
-                                            "item 19"),
-    (["--collision_mode", "tritri"], "item 17")])
+    pytest.param(["--frames_sharded", "1"], "item 19", id="flag1-item 19"),
+    pytest.param(["--collision_mode", "tritri"], "item 17",
+                 id="flag2-item 17")])
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         TF.main(TF.get_args(ARGV + flag), device="cpu")
@@ -303,7 +282,7 @@ def test_stage_b_search_is_rerun_when_its_renders_overflow(runs,
     monkeypatch.setattr(poseinit, "search_edge_settings",
                         lambda *a, **k: (R.RasterSettings(
                             64, edges_per_tile=8), {}))
-    _inject_jax_rotations(monkeypatch)
+    inject_jax_rotations(monkeypatch)
     ann = []
     from homan_tpu_torch.frontend.evidence import build_object_mask_info
     for o in ti["object_parameters"]:

@@ -85,6 +85,59 @@ print("LOADED", bad)
 """
 
 
+_CACHED_DRIVER_SCRIPT = """
+import importlib.util
+import os
+import sys
+import tempfile
+
+
+class Blocked:
+    # The card's machine has neither PIL nor pandas: the cached-evidence
+    # path must not need them. Found, so a lookup succeeds; an import
+    # raises, as a missing package does.
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("PIL", "pandas"):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        raise ImportError(f"{spec.name} is not installed")
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+import chip_smoke
+from homan_tpu_torch.cli import (convert_reference, fit_video,
+                                 track_dataset)
+from homan_tpu_torch.data import core50, epic, factory, hoa
+from homan_tpu_torch.frontend import adapters, assign, cachedfit
+from homan_tpu_torch.tracking import kalman, sequences
+
+torch.set_num_threads(2)  # the suite's workers share the cores
+with tempfile.TemporaryDirectory() as root:
+    chip_smoke.write_ho3d_tree(root, frames=4, obj_subdiv=1)
+    os.chdir(root)
+    clip = ["--frame_nb", "2", "--chunk_step", "1"]
+    chip_smoke.write_evidence_tree("ev", clip, device="cpu")
+    out = fit_video.main(fit_video.get_args(clip + [
+        "--evidence_root", "ev", "--num_initializations", "4",
+        "--num_obj_iterations", "1", "--num_joint_iterations", "2",
+        "--rend_size", "64", "--result_root", "res"]), device="cpu")
+    assert os.path.exists("res/samples/00000000/joint_fit.npz")
+    assert set(out[0]["budgets"]) == {"stage_b", "stage_c"}
+    assert np.isfinite(out[0]["final_loss"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu", "PIL",
+                                    "pandas"))
+print("LOADED", bad)
+"""
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -115,6 +168,15 @@ def test_driver_runs_without_jax_in_a_fresh_process():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _DRIVER_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_cached_driver_runs_without_jax_pil_or_pandas():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CACHED_DRIVER_SCRIPT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout

@@ -27,6 +27,50 @@ def to_numpy(x):
     return np.asarray(x)
 
 
+def assert_same_tree(a, b, path="out"):
+    """Exact equality of two trees of dicts, lists, arrays and scalars."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_tree(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype,
+                                                           b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, (path, a, b)
+
+
+def inject_jax_rotations(monkeypatch, n=24, seed=0):
+    """Make the port draw the JAX package's first `n` candidate rotations
+    (jax.random key `seed`), as the parity tests of stage B do."""
+    import jax
+    from homan_tpu.core import geometry as jgeo
+    from homan_tpu_torch.core import geometry as tgeo
+    rots = np.array(jgeo.random_rotations(jax.random.PRNGKey(seed), n))
+    monkeypatch.setattr(
+        tgeo, "random_rotations",
+        lambda n_, generator=None, upright=False, device=None:
+        torch.from_numpy(rots[:n_]).to(device))
+
+
+def host_tree(x):
+    """A pickled payload with every JAX array as numpy."""
+    import jax
+    if isinstance(x, dict):
+        return {k: host_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [host_tree(v) for v in x]
+    if isinstance(x, jax.Array):
+        return np.asarray(x)
+    return x
+
+
 def t2n(x):
     """torch tensor -> numpy."""
     return x.detach().cpu().numpy()
