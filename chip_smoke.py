@@ -99,7 +99,15 @@ Phases, each fatal on failure:
      timer; gates: the three files, a finite falling loss, no edge excess
      on the kept fit, the instance render's Kf covering the face demand
      re-measured on the clip, stage B's demand within its Ke and best IoU
-     >= 0.9, every metric finite; the hand and object pixels of the
+     >= 0.9, every metric finite; the overlays (the driver's default
+     --viz_step 20): final_points.png, final_points.<webm|apng> (5 frames,
+     256 x 512) and optim_evolution.<webm|apng> (the initial frame, 10
+     snapshots, the final frame, 256^2) decode to those frames in the
+     format the card's libraries give, the driver logs neither
+     "visualization failed" nor "viz_step render failed", every overlay
+     render's Kf covers its face demand (the JAX budget min(2048, F + 64)
+     at tile 64 beside it), the viz_step_snapshots and viz_final timers
+     are reported; the hand and object pixels of the
      instance render that the JAX default budget (256 faces a 64-pixel
      tile) would get wrong, counted; then a 3-frame clip (24 candidates, 5
      and 5 steps, 64^2) on the card and on the CPU: joint states within
@@ -118,6 +126,24 @@ Phases, each fatal on failure:
      them (the kernels line's `cached` keys); a 3-frame clip (24
      candidates, 5 and 5 steps, 64^2) on the card and on the CPU from one
      evidence tree: joint states within 3e-3 of each array's maximum.
+  7. the HO-3D evaluation (cli/eval_ho3d.py main, --dump_codalab --report
+     --render_videos) of phase 5's second run on the tree phase 5 fitted
+     (40 full-rate frames: one metric batch), counts set to 0 just before
+     and read just after (one voxelizer launch a batch of up to 64 frames,
+     nothing else); every summary metric finite, pred.json one entry per
+     full-rate frame, the HTML, the turntable (12 frames) and the clip
+     video (40 frames, 128^2) decode; its wall; the voxelizer held against
+     its plain version and timed at every batch shape it was handed (the
+     kernels line's `eval` keys).
+  8. the tritri fit: bench_config3's scene (10 frames, 400 steps, 256^2,
+     collision 1e-3 and contact 1, grid SDF) with collision_mode "tritri",
+     twice, counts set to 0 just before each run and read just after
+     (tritri_launches: the voxelizer twice a step for the contact term's
+     grids, one shade pair a step); loss finite and falling, no edge
+     overflow; a 10-step profiler window (device busy ms a step, idle
+     share) and one of the tritri term alone, its share of the step's
+     device time; a small tritri fit (3 frames, 3 steps, 64^2) on the card
+     and on the CPU: losses and final states within 3e-3.
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -1031,14 +1057,15 @@ def timed_fit_pair(torch, joint, scene, settings, iters, label, expect,
 
 
 def small_fit_pair(torch, joint, scene, settings, iters, label, expect,
-                   **fit_kw):
+                   states=False, **fit_kw):
     """The same small fit on the card and on the CPU (plain versions) from
     the same inputs: totals within rtol 3e-3; kernels launched on the card
-    only."""
-    _, h_gpu, w_gpu, l_gpu = run_fit(torch, joint, scene, settings, iters,
-                                     "cuda", **dict(fit_kw))
-    _, h_cpu, w_cpu, l_cpu = run_fit(torch, joint, scene, settings, iters,
-                                     "cpu", **dict(fit_kw))
+    only; with `states`, also the final states within 3e-3 of each field's
+    maximum, returned beside the totals' error."""
+    f_gpu, h_gpu, w_gpu, l_gpu = run_fit(torch, joint, scene, settings,
+                                         iters, "cuda", **dict(fit_kw))
+    f_cpu, h_cpu, w_cpu, l_cpu = run_fit(torch, joint, scene, settings,
+                                         iters, "cpu", **dict(fit_kw))
     for name, n in expect.items():
         check(l_gpu[name] == n, f"{label}: card {name} launches "
               f"{l_gpu[name]} != {n}")
@@ -1048,7 +1075,16 @@ def small_fit_pair(torch, joint, scene, settings, iters, label, expect,
     print(f"{label}, card vs CPU plain path: {iters}-step loss max rel err "
           f"{rel:.3g} (card {w_gpu:.1f} s, CPU {w_cpu:.1f} s)", flush=True)
     check(rel <= 3e-3, f"{label}: card and CPU fits disagree: rel err {rel}")
-    return rel
+    if not states:
+        return rel
+    err = {k: float((getattr(f_gpu, k).cpu() - v).abs().max()
+                    / max(float(v.abs().max()), 1e-30))
+           for k, v in vars(f_cpu).items() if v is not None}
+    print(f"{label}, card vs CPU plain path: final state max rel err "
+          + json.dumps(err), flush=True)
+    check(max(err.values()) <= 3e-3, f"{label}: card and CPU states "
+          f"differ: {err}")
+    return rel, err
 
 
 def sized_edges(R, verts, topo, K, settings):
@@ -1639,14 +1675,15 @@ def remeasure_instance_budget(torch, args, budget):
     return demand, len(faces), lost
 
 
-def capture_driver_inputs(torch):
-    """A context manager recording, while the driver runs, the first inputs
-    of each distinct shape it hands the kernels: the shade pair's through
-    rasterizer.shade_prep (keyed by batch, tiles, image size, tile, Ke,
-    the mesh's edge count and whether the render takes a gradient) and the
-    voxelizer's through sdf.build_scene_sdfs (keyed by mesh batch, faces
-    and grid). Yields {"shade": {name: (verts, topo, K, settings)},
-    "voxelize": {name: (verts, faces, grid)}}; records launch nothing."""
+def capture_driver_inputs(torch, prefix="driver"):
+    """A context manager recording, while the driver (or `prefix`'s path)
+    runs, the first inputs of each distinct shape it hands the kernels: the
+    shade pair's through rasterizer.shade_prep (keyed by batch, tiles,
+    image size, tile, Ke, the mesh's edge count and whether the render
+    takes a gradient) and the voxelizer's through sdf.build_scene_sdfs
+    (keyed by mesh batch, faces and grid). Yields {"shade": {name: (verts,
+    topo, K, settings)}, "voxelize": {name: (verts, faces, grid)}}; records
+    launch nothing."""
     import contextlib
 
     from homan_tpu_torch.interactions import sdf as S
@@ -1661,7 +1698,7 @@ def capture_driver_inputs(torch):
             grad = torch.is_grad_enabled() and verts.requires_grad
             S_, tp = settings.image_size, settings.tile_px
             E = int(topo.edges.shape[0])
-            name = (f"driver B{verts.shape[0]} T{(S_ // tp) ** 2} {S_}px "
+            name = (f"{prefix} B{verts.shape[0]} T{(S_ // tp) ** 2} {S_}px "
                     f"tile{tp} Ke{min(settings.edges_per_tile, E)} E{E} "
                     + ("fwd+bwd" if grad else "fwd_only"))
             got["shade"].setdefault(name, (verts.detach().clone(), topo,
@@ -1670,7 +1707,7 @@ def capture_driver_inputs(torch):
 
         def record_build(verts_list, faces_list, grid_size=32, **kw):
             for v, f in zip(verts_list, faces_list):
-                name = (f"driver metrics B{v.shape[0]} F{f.shape[0]} "
+                name = (f"{prefix} metrics B{v.shape[0]} F{f.shape[0]} "
                         f"G{grid_size}")
                 got["voxelize"].setdefault(name, (v.detach().clone(), f,
                                                   grid_size))
@@ -1702,11 +1739,126 @@ def driver_kernel_checks(torch, got):
     return shade_rows, vox_rows
 
 
+VIZ_WARNINGS = ("visualization failed", "viz_step render failed")
+
+
+def logged_warnings(name):
+    """A context manager collecting (and printing) the WARNING records of
+    logger `name` while it is open; yields the list of messages."""
+    import contextlib
+    import logging
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            got.append(msg)
+            print(f"[{name}] WARNING {msg}", flush=True)
+
+    @contextlib.contextmanager
+    def collect():
+        handler = Collect(level=logging.WARNING)
+        log = logging.getLogger(name)
+        log.addHandler(handler)
+        try:
+            yield got
+        finally:
+            log.removeHandler(handler)
+
+    got = []
+    return collect()
+
+
+def decode_media(path):
+    """The frames of an image or video the overlays wrote, as a list of
+    (H, W, 3) arrays: the port's own PNG and APNG files with its reader,
+    other PNGs (matplotlib's) with PIL, webm and mp4 with cv2."""
+    from homan_tpu_torch.viz import render_viz
+    if path.endswith((".png", ".apng")):
+        try:
+            return render_viz.read_apng(path)
+        except ValueError:  # a PNG of another writer (matplotlib's)
+            from PIL import Image, ImageSequence
+            return [np.asarray(f.convert("RGB"))
+                    for f in ImageSequence.Iterator(Image.open(path))]
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames
+
+
+def check_overlays(label, summary, args, warnings):
+    """The driver's overlay gates: no render warning; final_points.png,
+    final_points.<webm|apng> (one frontal | top-down frame for each of the
+    first five frames, 256 x 512) and, with --viz_step, optim_evolution.
+    <webm|apng> (the initial frame, a snapshot every viz_step steps of the
+    kept fit, the final frame, 256^2), each decoding to those frames; every
+    render's face budget covering its demand; the viz timers. Returns a
+    record: the files' formats, frame counts, the demand, and where the JAX
+    package's budget of min(2048, F + 64) faces a 64-pixel tile would drop
+    faces."""
+    import os
+    bad = [w for w in warnings if w.startswith(VIZ_WARNINGS)]
+    check(not bad, f"{label}: a render failed: {bad}")
+    files = {os.path.basename(p): p for p in summary["viz_files"]}
+    n = min(5, args.frame_nb)
+    snaps = (len(range(args.viz_step, args.num_joint_iterations,
+                       args.viz_step)) if args.viz_step else 0)
+    want = {"final_points": (n, (256, 512, 3))}
+    if snaps:
+        want["optim_evolution"] = (snaps + 2, (256, 256, 3))
+    videos = {name.split(".")[0]: name for name in files
+              if name != "final_points.png"}
+    check("final_points.png" in files and set(videos) == set(want)
+          and all(name.endswith((".webm", ".apng"))
+                  for name in videos.values()),
+          f"{label}: overlays {sorted(files)}")
+    out = {"files": {}}
+    for name, path in sorted(files.items()):
+        check(os.path.getsize(path) > 0, f"{label}: {path} is empty")
+        frames = decode_media(path)
+        shape = tuple(frames[0].shape) if frames else None
+        out["files"][name] = {"frames": len(frames), "shape": shape}
+        if name == "final_points.png":
+            check(len(frames) == 1, f"{label}: {path} holds {len(frames)} "
+                  "images")
+            continue
+        stem = name.split(".")[0]
+        check((len(frames), shape) == want[stem], f"{label}: {path} decodes "
+              f"to {len(frames)} frames of {shape}, expected {want[stem]}")
+    budgets = summary["viz_budgets"]
+    fits = len(summary["budgets"]["stage_c"]["attempts"])
+    check(len(budgets) == 2 * snaps * fits + 4, f"{label}: {len(budgets)} "
+          f"overlay renders, expected {2 * snaps * fits + 4}")
+    for b in budgets:
+        check(b["faces_per_tile"] >= b["face_demand"][b["tile_px"]],
+              f"{label}: overlay render Kf below its demand: {b}")
+    d64 = max(b["face_demand"][64] for b in budgets)
+    jax_kf = min(2048, budgets[0]["faces"] + 64)
+    for key in ("viz_step_snapshots", "viz_final"):
+        check(key in summary["timers"] or (key == "viz_step_snapshots"
+                                           and not snaps),
+              f"{label}: no {key} timer")
+    out.update({"renders": len(budgets), "faces": budgets[0]["faces"],
+                "tile_px": sorted({b["tile_px"] for b in budgets}),
+                "kf_max": max(b["faces_per_tile"] for b in budgets),
+                "demand_at_tile64_max": d64, "jax_kf_at_tile64": jax_kf,
+                "jax_budget_drops_faces": d64 > jax_kf})
+    print(f"{label} overlays: " + json.dumps(out), flush=True)
+    return out
+
+
 def driver_run(torch, argv, label, folder, capture=False, profile=False):
     """One fit_video run at `argv` (from the working folder, results in
     `folder`) with the launch counts set to 0 just before it and read just
     after, held to the path's count (driver_launches); its wall and stage
-    timers printed; the driver's gates (check_driver_run). `capture`
+    timers printed; the driver's gates (check_driver_run) and its overlays'
+    (check_overlays; the driver's warnings are collected). `capture`
     records the kernels' inputs (capture_driver_inputs); `profile` runs it
     in one torch.profiler window (profile_clip) instead of timing it.
     Returns (record, args, summary, results, captured inputs or None,
@@ -1718,7 +1870,8 @@ def driver_run(torch, argv, label, folder, capture=False, profile=False):
     window = wall = None
     reset_counts()
     with (capture_driver_inputs(torch) if capture
-          else contextlib.nullcontext()) as got:
+          else contextlib.nullcontext()) as got, \
+            logged_warnings(fit_video.logger.name) as warnings:
         if profile:
             ran = []
             window = profile_clip(torch, lambda: ran.append(
@@ -1743,8 +1896,9 @@ def driver_run(torch, argv, label, folder, capture=False, profile=False):
     check(counts == expect, f"{label}: launches {counts}, the path's count "
           f"is {expect}")
     indep, _, res = check_driver_run(label, folder, summary)
+    overlays = check_overlays(label, summary, args, warnings)
     record = {"wall_s": wall, "timers": summary["timers"],
-              "launches": counts,
+              "launches": counts, "overlays": overlays,
               "best_iou": indep["object_parameters"][0]["best_iou"],
               "loss": [res["losses"]["loss"][0], res["losses"]["loss"][-1]]}
     return record, args, summary, res, got, window
@@ -1781,75 +1935,74 @@ def small_driver_pair(argv, label):
     return small, err
 
 
-def driver_phase(torch):
+def driver_phase(torch, root):
     """Phase 5: the fit_video driver, --gt_masks 1 at get_args' defaults,
-    twice on the synthetic HO-3D clip with the launch counts read around
-    each run; each kernel against its plain version at every shape the
-    second run handed it; then the small clip on the card and on the CPU.
-    Returns the result dict, the second run's launch counts and the kernel
-    rows at the driver's shapes (shade, voxelizer)."""
+    twice on the synthetic HO-3D clip written under `root` (the second
+    run's results stay in root/run1 for phase 7), with the launch counts
+    read around each run; each kernel against its plain version at every
+    shape the second run handed it; then the small clip on the card and on
+    the CPU. Returns the result dict, the second run's launch counts and
+    the kernel rows at the driver's shapes (shade, voxelizer)."""
     import os
-    import tempfile
 
     out = {}
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as root:
-        write_ho3d_tree(root, frames=40)
-        os.chdir(root)
-        try:
-            runs = []
-            for i in range(2):
-                record, args, summary, res, got, _ = driver_run(
-                    torch, DRIVER_ARGV, f"driver run {i + 1}", f"run{i}",
-                    capture=i == 1)
-                runs.append(record)
-            counts = record["launches"]
-            shade_rows, vox_rows = driver_kernel_checks(torch, got)
-            check(any(not r["fwd_only"] for r in shade_rows.values())
-                  and any(r["fwd_only"] for r in shade_rows.values())
-                  and vox_rows, "driver: no kernel inputs captured: "
-                  f"{sorted(shade_rows)} {sorted(vox_rows)}")
-            remeasured, n_faces, lost = remeasure_instance_budget(
-                torch, args, summary["budgets"]["instance_masks"])
-            metrics = {}
-            for k in DRIVER_METRICS:
-                for key in (k, k + "_init"):
-                    metrics[key] = float(np.mean(res["metrics"][key]))
-            b = summary["budgets"]
-            print("driver budgets: " + json.dumps(
-                {"instance_masks": b["instance_masks"],
-                 "instance_demand_remeasured": remeasured,
-                 "instance_faces": n_faces,
-                 "jax_default_kf_overflows": remeasured[64] > 256,
-                 "jax_default_pixels_differing_of_sized": lost,
-                 "stage_b": b["stage_b"], "stage_c": b["stage_c"]}),
-                flush=True)
-            print("driver metrics (means over the clip's frames): "
-                  + json.dumps(metrics), flush=True)
-            out = {"runs": runs, "budgets": b, "metrics": metrics,
-                   "instance_demand_remeasured": remeasured,
-                   "jax_default_pixels_differing_of_sized": lost}
+    write_ho3d_tree(root, frames=40)
+    os.chdir(root)
+    try:
+        runs = []
+        for i in range(2):
+            record, args, summary, res, got, _ = driver_run(
+                torch, DRIVER_ARGV, f"driver run {i + 1}", f"run{i}",
+                capture=i == 1)
+            runs.append(record)
+        counts = record["launches"]
+        shade_rows, vox_rows = driver_kernel_checks(torch, got)
+        check(any(not r["fwd_only"] for r in shade_rows.values())
+              and any(r["fwd_only"] for r in shade_rows.values())
+              and vox_rows, "driver: no kernel inputs captured: "
+              f"{sorted(shade_rows)} {sorted(vox_rows)}")
+        remeasured, n_faces, lost = remeasure_instance_budget(
+            torch, args, summary["budgets"]["instance_masks"])
+        metrics = {}
+        for k in DRIVER_METRICS:
+            for key in (k, k + "_init"):
+                metrics[key] = float(np.mean(res["metrics"][key]))
+        b = summary["budgets"]
+        print("driver budgets: " + json.dumps(
+            {"instance_masks": b["instance_masks"],
+             "instance_demand_remeasured": remeasured,
+             "instance_faces": n_faces,
+             "jax_default_kf_overflows": remeasured[64] > 256,
+             "jax_default_pixels_differing_of_sized": lost,
+             "stage_b": b["stage_b"], "stage_c": b["stage_c"]}),
+            flush=True)
+        print("driver metrics (means over the clip's frames): "
+              + json.dumps(metrics), flush=True)
+        out = {"runs": runs, "budgets": b, "metrics": metrics,
+               "instance_demand_remeasured": remeasured,
+               "jax_default_pixels_differing_of_sized": lost}
 
-            # The small clip on the card and on the CPU.
-            small, err = small_driver_pair(SMALL_DRIVER_ARGV, "small driver")
-            (gi, _, _), (ci, _, _) = small["cuda"], small["cpu"]
-            masks = [("hand", gi["person_parameters"]["masks"],
-                      ci["person_parameters"]["masks"])] + [
-                (f"object {t}", g["masks"], c["masks"]) for t, (g, c) in
-                enumerate(zip(gi["object_parameters"],
-                              ci["object_parameters"]))]
-            diff = {name: int((np.asarray(g) != np.asarray(c)).sum())
-                    for name, g, c in masks}
-            total = sum(int(np.asarray(c).sum()) for _, _, c in masks)
-            print(f"small driver: instance-mask pixels that differ "
-                  f"{json.dumps(diff)} of {total} mask pixels", flush=True)
-            check(sum(diff.values()) <= 1e-3 * total, f"small driver: "
-                  f"instance masks differ on {diff} pixels")
-            out["card_vs_cpu"] = {"state_rel_err": err,
-                                  "mask_pixels_differing": diff,
-                                  "mask_pixels": total}
-        finally:
-            os.chdir(cwd)
+        # The small clip on the card and on the CPU.
+        small, err = small_driver_pair(SMALL_DRIVER_ARGV, "small driver")
+        (gi, _, _), (ci, _, _) = small["cuda"], small["cpu"]
+        masks = [("hand", gi["person_parameters"]["masks"],
+                  ci["person_parameters"]["masks"])] + [
+            (f"object {t}", g["masks"], c["masks"]) for t, (g, c) in
+            enumerate(zip(gi["object_parameters"],
+                          ci["object_parameters"]))]
+        diff = {name: int((np.asarray(g) != np.asarray(c)).sum())
+                for name, g, c in masks}
+        total = sum(int(np.asarray(c).sum()) for _, _, c in masks)
+        print(f"small driver: instance-mask pixels that differ "
+              f"{json.dumps(diff)} of {total} mask pixels", flush=True)
+        check(sum(diff.values()) <= 1e-3 * total, f"small driver: "
+              f"instance masks differ on {diff} pixels")
+        out["card_vs_cpu"] = {"state_rel_err": err,
+                              "mask_pixels_differing": diff,
+                              "mask_pixels": total}
+    finally:
+        os.chdir(cwd)
     return out, counts, shade_rows, vox_rows
 
 
@@ -1923,6 +2076,167 @@ def cached_phase(torch):
     return out, runs[1]["launches"], shade_rows, vox_rows
 
 
+# Phase 7: the HO-3D evaluation (cli/eval_ho3d.py) of phase 5's results.
+EVAL_ARGV = ["--results_root", "run1", "--split", "val", "--dump_codalab",
+             "--report", "--render_videos"]
+EVAL_BATCH = 64  # eval_ho3d's frames per metric call
+
+
+def eval_phase(torch, root, frames):
+    """Phase 7: eval_ho3d.main over the results tree phase 5's second run
+    left in root/run1, on the dataset it fitted (the synthetic tree,
+    `frames` full-rate frames), with --dump_codalab, --report and
+    --render_videos: launch counts set to 0 just before and read just
+    after (the voxelizer once a batch of up to 64 frames: the interaction
+    metrics voxelize the object; nothing else launches a kernel); gates:
+    every summary metric finite, pred.json one entry per full-rate frame,
+    the HTML and the videos exist and decode; the voxelizer held against
+    its plain version and timed at every batch shape the evaluation handed
+    it. Returns the result dict, the launch counts and the voxelizer rows
+    (the kernels line's `eval` keys)."""
+    import glob
+    import os
+
+    from homan_tpu_torch.cli import eval_ho3d
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        args = eval_ho3d.get_args(EVAL_ARGV)
+        reset_counts()
+        with capture_driver_inputs(torch, "eval") as got:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = eval_ho3d.main(args, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect["voxelize"] = -(-frames // EVAL_BATCH)
+        print(f"evaluation: {wall:.3f} s; launches " + json.dumps(counts),
+              flush=True)
+        check(counts == expect, f"evaluation: launches {counts}, the "
+              f"path's count is {expect}")
+        check(summary and all(np.isfinite(v) for v in summary.values()),
+              f"evaluation: summary {summary}")
+        with open("run1/pred.json") as fh:
+            joints, verts = json.load(fh)
+        check(len(joints) == len(verts) == frames, f"evaluation: pred.json "
+              f"holds {len(joints)} / {len(verts)} entries, not {frames}")
+        check(np.asarray(joints[0]).shape == (21, 3)
+              and np.asarray(verts[0]).shape == (778, 3),
+              "evaluation: pred.json entry shapes")
+        for name in ("pred.zip", "report.html", "eval_report.html",
+                     "eval_metrics.pkl"):
+            check(os.path.exists(os.path.join("run1", name)),
+                  f"evaluation: no {name}")
+        videos = {}
+        for path in sorted(glob.glob("run1/test_vids/*")):
+            decoded = decode_media(path)
+            videos[os.path.basename(path)] = {
+                "frames": len(decoded),
+                "shape": tuple(decoded[0].shape) if decoded else None}
+        want = {"rot": (12, (128, 128, 3)),
+                "seq": (min(frames, 60), (128, 128, 3))}
+        check(sorted(v.split("_")[0] for v in videos) == ["rot", "seq"],
+              f"evaluation: videos {sorted(videos)}")
+        for name, v in videos.items():
+            check((v["frames"], v["shape"]) == want[name.split("_")[0]],
+                  f"evaluation: {name} decodes to {v}")
+        vox_rows = {name: compare_voxelize(torch, name, v, f, g,
+                                           timed=True)[0]
+                    for name, (v, f, g) in sorted(got["voxelize"].items())}
+        check(vox_rows, "evaluation: no voxelizer input captured")
+        print("evaluation summary: " + json.dumps(summary), flush=True)
+        out = {"wall_s": wall, "launches": counts, "summary": summary,
+               "pred_entries": len(joints), "videos": videos,
+               "full_rate_frames": frames}
+    finally:
+        os.chdir(cwd)
+    return out, counts, vox_rows
+
+
+def tritri_launches(iters, hand_nb, lw):
+    """Kernel launches of a stage-C fit with collision_mode "tritri" (grid
+    SDF), from the code: the tritri term launches no kernel of the port
+    (plain PyTorch); the SDF terms run for contact alone, voxelizing each
+    hand and the object every step (build_interaction_grids), and not at
+    all when lw_contact is 0; one shade pair a step."""
+    vox = (hand_nb + 1) * iters if lw.get("lw_contact", 0) > 0 else 0
+    return {"voxelize": vox, "shade_fwd": iters, "shade_bwd": iters,
+            "depth_fwd": 0, "depth_bwd": 0}
+
+
+def tritri_phase(torch, joint, scene, roi, cfg, step_sdf, small,
+                 small_set):
+    """Phase 8: bench_config3's scene (10 frames, 400 steps, 256^2, collision
+    1e-3 and contact 1, grid SDF) with collision_mode "tritri": twice,
+    counts set to 0 just before each run and read just after
+    (tritri_launches), loss finite and falling, no edge overflow; a 10-step
+    profiler window of the fit and one of the tritri term alone (forward
+    and backward at the fit's initial poses), its share of the step's
+    device time; a small fit on the card and on the CPU (states within
+    3e-3). Returns the result dict and the second run's counts."""
+    import dataclasses
+
+    from homan_tpu_torch.fit import model as M
+    from homan_tpu_torch.interactions import intersect
+    kw = dict(cfg=cfg, loss_weights=LW_INTER,
+              closed_hand_faces=scene.closed_hand_faces)
+    expect = tritri_launches(ITERS2, cfg.hand_nb, LW_INTER)
+    walls, counts, hist, _ = timed_fit_pair(
+        torch, joint, scene, roi, ITERS2, "tritri fit", expect, **kw)
+    check("loss_collision" in hist and "loss_contact" in hist,
+          f"tritri fit: terms {sorted(hist)}")
+    step = profile_steps(torch, joint, scene, roi, 10, "tritri fit", **kw)
+    # The tritri term alone at the fit's shapes: forward and backward.
+    with torch.no_grad():
+        vo, _ = M.get_verts_object(scene.init_state, scene.consts)
+        vh, _ = M.get_verts_hand(scene.init_state, scene.consts, scene.cfg)
+    hf = torch.as_tensor(scene.closed_hand_faces, device="cuda")
+    of = scene.consts.faces_object.faces
+
+    def term():
+        h = vh.detach().clone().requires_grad_(True)
+        intersect.compute_collision_loss_tritri(h, hf, vo, of,
+                                                cfg.hand_nb).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    alone = profile_window(torch, lambda: [term() for _ in range(10)], 10,
+                           "tritri term alone")
+    alone["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    share = alone["device_busy_ms_per_step"] / step["device_busy_ms_per_step"]
+    pairs = (vo.shape[0] * cfg.hand_nb * int(hf.shape[0])
+             * int(of.shape[0]))
+    busy = alone["device_busy_ms_per_step"]
+    print(f"tritri fit: the tritri term takes {busy:.4f} ms of device "
+          f"time a step, {share:.3f} of the fit's "
+          f"{step['device_busy_ms_per_step']:.4f} (step-wise "
+          f"{step['device_busy_ms_per_step'] - step_sdf:+.4f} ms against "
+          f"the SDF-collision fit); {pairs} triangle pairs a step, chunks "
+          f"of {intersect.PAIR_CHUNK}", flush=True)
+    # Small fits on the card and on the CPU from the same inputs.
+    small_cfg = dataclasses.replace(small.cfg, sdf_mode="grid",
+                                    collision_mode="tritri")
+    rel, state_err = small_fit_pair(
+        torch, joint, small, small_set, 3, "small tritri fit",
+        tritri_launches(3, small_cfg.hand_nb, LW_INTER), states=True,
+        cfg=small_cfg, loss_weights=LW_INTER,
+        closed_hand_faces=small.closed_hand_faces)
+    loss = hist["loss"]
+    return {"frames": FRAMES2, "iters": ITERS2, "sdf_mode": "grid",
+            "collision_mode": "tritri", "first_wall_s": walls[0],
+            "second_wall_s": walls[1],
+            "ms_per_step": walls[1] / ITERS2 * 1e3, "launches": counts,
+            "loss": [float(loss[0]), float(loss[-1])],
+            "loss_collision": [float(hist["loss_collision"][0]),
+                               float(hist["loss_collision"][-1])],
+            "profiled": step, "tritri_alone": alone,
+            "tritri_device_share": share, "pairs_per_step": pairs,
+            "pair_chunk": intersect.PAIR_CHUNK,
+            "card_vs_cpu": {"loss_rel_err": rel,
+                            "state_rel_err": state_err}}, counts
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1959,6 +2273,11 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    # The overlay writers use these where they import (viz/render_viz.py).
+    from homan_tpu_torch.viz import render_viz
+    print("image libraries: " + json.dumps({
+        name: render_viz._import_optional(name) is not None
+        for name in ("cv2", "PIL.Image", "matplotlib")}), flush=True)
     homan_tpu_torch.set_precision()
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
@@ -2144,13 +2463,27 @@ def main(argv=None) -> int:
     stage_b, b_rows = stage_b_phase(torch, R)
     phase_done(4)
 
-    # 5. The fit_video driver, --gt_masks 1 (cli/fit_video.py) ------------
-    driver, driver_counts, d_shade, d_vox = driver_phase(torch)
-    phase_done(5)
+    # 5-7. The fit_video driver, --gt_masks 1 (cli/fit_video.py), on a tree
+    # that lives until phase 7 has evaluated its results.
+    import tempfile
+    with tempfile.TemporaryDirectory() as tree5:
+        driver, driver_counts, d_shade, d_vox = driver_phase(torch, tree5)
+        phase_done(5)
 
-    # 6. The fit_video driver on cached detections, --evidence_root --------
-    cached, cached_counts, c_shade, c_vox = cached_phase(torch)
-    phase_done(6)
+        # 6. The fit_video driver on cached detections, --evidence_root ----
+        cached, cached_counts, c_shade, c_vox = cached_phase(torch)
+        phase_done(6)
+
+        # 7. The HO-3D evaluation of phase 5's results (cli/eval_ho3d.py) --
+        evaluation, eval_counts, e_vox = eval_phase(torch, tree5, 40)
+        phase_done(7)
+
+    # 8. The tritri fit: bench_config3's scene, collision_mode "tritri" ----
+    cfg_tritri = dataclasses.replace(cfg_grid, collision_mode="tritri")
+    tritri, tritri_counts = tritri_phase(
+        torch, joint, scene2, roi2, cfg_tritri,
+        step2["device_busy_ms_per_step"], small, small_set)
+    phase_done(8)
 
     # Result lines ------------------------------------------------------------
     h = results["fit"]
@@ -2257,6 +2590,8 @@ def main(argv=None) -> int:
     # interaction metrics.
     for k in kernels:
         k["launches_per_cached_clip"] = cached_counts[k["name"]]
+        k["launches_per_eval"] = eval_counts[k["name"]]
+        k["launches_per_tritri_fit"] = tritri_counts[k["name"]]
     for part, shade_rows, vox_rows in (("driver", d_shade, d_vox),
                                        ("cached", c_shade, c_vox)):
         for k in kernels[:2]:
@@ -2277,6 +2612,9 @@ def main(argv=None) -> int:
                     "library_ms": None if fwd else min(
                         lib["library_index_add_ms"],
                         lib["library_einsum_ms"])}
+    # The evaluation's voxelizer shapes, under "eval" (phase 7).
+    for part, vox_rows in (("driver", d_vox), ("cached", c_vox),
+                           ("eval", e_vox)):
         kernels[4][part] = {
             name: {"ms": r["ms"], "device_ms": r["device_ms"],
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2301,10 +2639,12 @@ def main(argv=None) -> int:
         "stage_b": stage_b,
         "driver": driver,
         "cached_driver": cached,
+        "evaluation": evaluation,
+        "tritri_fit": tritri,
     }
     rows = [(k["name"], k) for k in kernels] + [
         (f"{k['name']} {name}", r) for k in kernels
-        for part in ("stage_b", "driver", "cached")
+        for part in ("stage_b", "driver", "cached", "eval")
         for name, r in k.get(part, {}).items() if isinstance(r, dict)]
     for label, r in rows:
         for key in ("ms", "device_ms"):

@@ -9,7 +9,15 @@
            from the measured demand and re-run with a larger one when a
            step still overflowed;
   outputs: indep_fit.pkl, joint_fit.npz and results.pkl (point and
-           interaction metrics) per sample, and the aggregate results.pkl.
+           interaction metrics) per sample, and the aggregate results.pkl;
+           the overlay renders (viz/render_viz.py): final_points.png (the
+           frontal, top-down and initial rows), final_points.webm and,
+           with --viz_step, optim_evolution.webm of the snapshots taken
+           every viz_step joint steps. Where cv2 is not installed the
+           videos are animated PNGs, <stem>.apng; where matplotlib is not,
+           the grid is a PNG without row labels. A failed render logs a
+           warning ("viz_step render failed", "visualization failed") and
+           keeps the fit.
 
 Run on the card:
   python -m homan_tpu_torch.cli.fit_video --dataset ho3d --split val \\
@@ -19,8 +27,7 @@ Run on the card:
 or on the CPU from Python: main(get_args([...]), device="cpu").
 
 Not ported yet, and refused with NotImplementedError: --frames_sharded 1
-(ROADMAP.md Queue 1 item 19) and --collision_mode tritri (item 17). The
-overlay renders and videos come with item 18: this driver renders none.
+(ROADMAP.md Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                auto_edge_settings,
                                                bump_edge_settings)
 from homan_tpu_torch.utils_profiling import StageTimers
+from homan_tpu_torch.viz import render_viz
 
 logger = logging.getLogger("homan_tpu_torch.fit_video")
 
@@ -73,9 +81,9 @@ def get_args(argv=None):
     parser.add_argument("--resume_indep", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--viz_step", default=20, type=int,
-                        help="optimization snapshots every viz_step steps "
-                             "in the JAX driver; the port renders no "
-                             "overlays yet (ROADMAP.md Queue 1 item 18)")
+                        help="an overlay snapshot every viz_step joint "
+                             "steps, written as optim_evolution.webm; 0 "
+                             "takes none")
     parser.add_argument("--save_indep", action="store_true")
     parser.add_argument("--only_missing", choices=[0, 1], type=int)
     parser.add_argument("--gt_masks", choices=[0, 1], default=0, type=int)
@@ -107,9 +115,9 @@ def get_args(argv=None):
                              "voxelize + trilinear (the reference's)")
     parser.add_argument("--collision_mode", default="sdf",
                         choices=["sdf", "tritri"],
-                        help="collision backend: 'sdf'; 'tritri' is not "
-                             "ported yet (ROADMAP.md Queue 1 item 17) and "
-                             "raises NotImplementedError")
+                        help="collision backend: 'sdf' (the SDF "
+                             "penetration term) or 'tritri' (intersecting "
+                             "triangle pairs, interactions/intersect.py)")
     parser.add_argument("--rend_size", default=256, type=int)
     parser.add_argument("--stageb_parallel_frames", choices=[0, 1], default=0,
                         type=int,
@@ -223,10 +231,6 @@ def refuse_unported(args):
         raise NotImplementedError(
             "--frames_sharded 1 (parallel/frames.py) is not ported yet: "
             "ROADMAP.md Queue 1 item 19")
-    if args.collision_mode == "tritri":
-        raise NotImplementedError(
-            "--collision_mode tritri (interactions/intersect.py) is not "
-            "ported yet: ROADMAP.md Queue 1 item 17")
 
 
 def _sample_metrics(annots, state, final_state, consts, cfg, device):
@@ -278,12 +282,48 @@ def _sample_metrics(annots, state, final_state, consts, cfg, device):
     return metrics
 
 
+def _write_overlays(timers, sample_folder, state, final_state, consts, cfg,
+                    annots, args, optim_frames, viz_budgets):
+    """The final overlays (fit_vid_dataset.py:403-469 role): the grid of
+    frontal, top-down and initial renders of the first five frames, the
+    frontal | top-down video and the snapshots' evolution video. Returns
+    the paths written; a failed render logs a warning and keeps the fit."""
+    written = []
+    try:
+        with timers.time("viz_final", sync=True):
+            n = min(5, args.frame_nb)
+            frontal, top_down = render_viz.visualize_hand_object(
+                final_state, consts, cfg, images=annots.get("images"),
+                viz_len=n, image_size=256, budgets=viz_budgets)
+            init_frontal, _ = render_viz.visualize_hand_object(
+                state, consts, cfg, images=annots.get("images"), viz_len=n,
+                image_size=256, budgets=viz_budgets)
+            written.append(render_viz.save_image_grid(
+                {"frontal": frontal, "top_down": top_down,
+                 "init": init_frontal},
+                os.path.join(sample_folder, "final_points.png")))
+            written.append(render_viz.make_video(
+                [np.concatenate([f, t], axis=1)
+                 for f, t in zip(frontal, top_down)],
+                os.path.join(sample_folder, "final_points.webm"), fps=8))
+            if optim_frames:
+                written.append(render_viz.make_video(
+                    [init_frontal[0]] + optim_frames + [frontal[0]],
+                    os.path.join(sample_folder, "optim_evolution.webm"),
+                    fps=4))
+    except Exception as exc:  # a render error must not lose the fit
+        logger.warning("visualization failed: %s", exc, exc_info=True)
+    return written
+
+
 def main(args, device=None):
     """Fit every `data_step`-th sample of the dataset from `data_offset`.
 
     device: where everything runs (default `cuda`; raises when CUDA is
     absent). Files hold numpy arrays only. Returns one summary per fitted
-    sample: {"sample", "timers" (seconds by stage), "budgets", "final_loss"}.
+    sample: {"sample", "timers" (seconds by stage), "budgets",
+    "final_loss", "viz_files" (the overlay files written), "viz_budgets"
+    (each overlay render's tile, Kf and face demand by tile)}.
     """
     device = resolve_device(device)
     refuse_unported(args)
@@ -302,10 +342,6 @@ def main(args, device=None):
                        "model (fits will be structurally correct only)",
                        args.mano_root)
         mano_layer = ManoLayer.synthetic(0, device=device)
-    if args.viz_step:
-        logger.info("overlay renders and videos are not ported yet "
-                    "(ROADMAP.md Queue 1 item 18): none are written")
-
     loss_weights = {k: v for k, v in vars(args).items() if k.startswith("lw_")}
     loss_weights.pop("lw_smooth", None)
 
@@ -403,6 +439,22 @@ def main(args, device=None):
                 sized.tile_px)
             roi_settings = sized
 
+        # Overlay snapshots every viz_step steps (homan/jointopt.py:158-177
+        # role), kept for the evolution video; each render's face budget
+        # goes to viz_budgets.
+        optim_frames, viz_budgets = [], []
+
+        def viz_callback(iters_done, s):
+            try:
+                with timers.time("viz_step_snapshots", sync=True):
+                    frontal, _ = render_viz.visualize_hand_object(
+                        s, consts, cfg, images=annots.get("images"),
+                        viz_len=1, image_size=256, budgets=viz_budgets)
+                    optim_frames.append(frontal[0])
+            except Exception as exc:  # a render error must not lose the fit
+                logger.warning("viz_step render failed: %s", exc,
+                               exc_info=True)
+
         # The runtime backstop: every step re-measures the demand
         # (edge_budget_excess). A positive excess means the fit dropped
         # contour edges somewhere: discard it, bump the budget past the
@@ -411,12 +463,16 @@ def main(args, device=None):
         attempts = []
         for _ in range(4):
             cur = roi_settings or default_settings
+            optim_frames.clear()
             with timers.time("stageC_joint_fit", sync=True):
                 final_state, history = joint.optimize_hand_object(
                     state, consts, cfg, loss_weights=loss_weights,
                     num_iterations=args.num_joint_iterations,
                     closed_hand_faces=closed_hand_faces,
-                    roi_settings=roi_settings, device=device)
+                    roi_settings=roi_settings,
+                    viz_step=args.viz_step or None,
+                    viz_callback=viz_callback if args.viz_step else None,
+                    device=device)
             excess = (float(history["edge_budget_excess"].max())
                       if "edge_budget_excess" in history else 0.0)
             attempts.append({"tile_px": cur.tile_px,
@@ -438,6 +494,9 @@ def main(args, device=None):
                 "recovery ladder: the converged silhouettes are corrupted")
 
         np.savez(check_path, **postprocess.state_to_dict(final_state))
+        viz_files = _write_overlays(timers, sample_folder, state, final_state,
+                                    consts, cfg, annots, args, optim_frames,
+                                    viz_budgets)
 
         with timers.time("metrics_postprocess", sync=True):
             sample_metrics = _sample_metrics(annots, state, final_state,
@@ -463,7 +522,9 @@ def main(args, device=None):
         print(f"[{sample_idx}] done; final loss {final_loss:.4f}")
         summaries.append({"sample": sample_idx,
                           "timers": dict(timers.totals),
-                          "budgets": budgets, "final_loss": final_loss})
+                          "budgets": budgets, "final_loss": final_loss,
+                          "viz_files": viz_files,
+                          "viz_budgets": viz_budgets})
     return summaries
 
 

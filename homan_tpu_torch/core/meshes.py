@@ -6,7 +6,21 @@ write and build bit-identical meshes.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+
+# Flat part colours of the viz renders (homan_tpu/core/meshes.py:16).
+COLORS = {
+    "blue": (0.65098039, 0.74117647, 0.85882353),
+    "grey": (0.65, 0.65, 0.65),
+    "green": (0.44, 0.75, 0.44),
+    "gold": (0.85, 0.7, 0.2),
+    "red": (251 / 255.0, 128 / 255.0, 114 / 255.0),
+    "pink": (0.9, 0.7, 0.7),
+    "white": (1.0, 1.0, 1.0),
+    "purple": (0.7, 0.55, 0.9),
+}
 
 
 def load_obj(path: str):
@@ -148,3 +162,32 @@ def load_closed_hand_faces(path: str | None, open_faces: np.ndarray):
                              f"{closed.shape}")
         return closed.astype(np.int32)
     return close_boundary_fan(np.asarray(open_faces)).astype(np.int32)
+
+
+def get_faces_and_textures(verts_list: Sequence[np.ndarray],
+                           faces_list: Sequence[np.ndarray],
+                           color_names: Sequence[str]):
+    """Pack per-part meshes into one scene mesh with flat per-face colors
+    (homan_tpu/core/meshes.py:267).
+
+    Args:
+      verts_list: list of (B, V_i, 3).
+      faces_list: list of (F_i, 3) (or (1, F_i, 3)).
+    Returns:
+      faces (1, sum(B*F_i), 3) indexing the concatenated per-batch vertex
+      buffer, colors (1, sum(B*F_i), 3).
+    """
+    all_faces, all_colors = [], []
+    offset = 0
+    for verts, faces, cname in zip(verts_list, faces_list, color_names):
+        faces = np.asarray(faces)
+        if faces.ndim == 3:
+            faces = faces[0]
+        B, V = verts.shape[0], verts.shape[1]
+        for b in range(B):
+            all_faces.append(faces + offset + b * V)
+        offset += B * V
+        color = np.asarray(COLORS[cname], np.float32)
+        all_colors.append(np.tile(color, (B * faces.shape[0], 1)))
+    return (np.concatenate(all_faces)[None].astype(np.int32),
+            np.concatenate(all_colors)[None])

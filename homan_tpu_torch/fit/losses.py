@@ -2,8 +2,8 @@
 
 Each term reproduces a reference loss; a zero weight skips its branch, as
 the JAX package prunes it at trace time. Every term of the JAX package is
-ported except the triangle-triangle collision (`collision_mode="tritri"`),
-which raises NotImplementedError until its item lands.
+ported, the triangle-triangle collision (`collision_mode="tritri"`,
+interactions/intersect.py) included.
 
 Ordinal depth: the reference's own call of this loss never ran
 (homan/homan.py:507 passes no arguments); as in the JAX package it is wired
@@ -18,6 +18,7 @@ import torch
 from homan_tpu_torch.core import camera as cam
 from homan_tpu_torch.fit import model as M
 from homan_tpu_torch.interactions import contact as contact_lib
+from homan_tpu_torch.interactions import intersect as intersect_lib
 from homan_tpu_torch.interactions import sdf as sdf_lib
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                rasterize_depth,
@@ -353,16 +354,26 @@ def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
     if with_sdf_terms:
         if closed_hand_faces is None:
             raise ValueError("collision and contact need closed_hand_faces")
-        if cfg.collision_mode == "tritri" and lw["lw_collision"] > 0:
-            raise NotImplementedError(
-                "collision_mode='tritri' (interactions/intersect.py) is not "
-                "ported yet; it is the last bullet of ROADMAP Queue 1 item "
-                "17")
-        loss_dict.update(compute_interaction_sdf_terms(
-            verts_hand_detscale, verts_object, _faces_of(consts.faces_object),
-            _faces_of(closed_hand_faces), cfg.hand_nb,
-            with_collision=lw["lw_collision"] > 0,
-            with_contact=lw["lw_contact"] > 0, sdf_mode=cfg.sdf_mode))
+        tritri = cfg.collision_mode == "tritri" and lw["lw_collision"] > 0
+        if tritri:
+            # The BVH branch (homan/lossutils.py:66-104): intersecting
+            # triangle pairs, point-to-plane penetration. The object is
+            # detached, so collision only pushes the hand (the reference's
+            # verts_object.detach(), homan/homan.py:445-447).
+            loss_dict["loss_collision"] = \
+                intersect_lib.compute_collision_loss_tritri(
+                    verts_hand_detscale, _faces_of(closed_hand_faces),
+                    verts_object.detach(), _faces_of(consts.faces_object),
+                    cfg.hand_nb)
+        # With tritri on, the SDF terms run for contact alone, and not at
+        # all (no voxelizer launch) when lw_contact is 0.
+        if lw["lw_contact"] > 0 or not tritri:
+            loss_dict.update(compute_interaction_sdf_terms(
+                verts_hand_detscale, verts_object,
+                _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
+                cfg.hand_nb, with_collision=lw["lw_collision"] > 0
+                and not tritri, with_contact=lw["lw_contact"] > 0,
+                sdf_mode=cfg.sdf_mode))
     if lw["lw_v2d_hand"] > 0:
         l, m = compute_v2d_loss_hand(verts_hand, consts.camintr,
                                      consts.ref_verts2d_hand, cfg.image_size,

@@ -24,8 +24,8 @@ package does not check). `search_edge_settings` sizes that budget before
 the search from the demand of its initial candidates.
 
 Not ported: `prewarm_programs` (it overlaps XLA compiles; eager PyTorch has
-nothing to compile) and `visualize_optimal_poses` (viz comes with ROADMAP.md
-Queue 1 item 18).
+nothing to compile) and `visualize_optimal_poses` (a matplotlib grid of the
+best candidates that no driver calls).
 """
 from __future__ import annotations
 

@@ -430,3 +430,44 @@ def test_shade_pair_takes_every_ke_up_to_the_slot_ceiling(cuda, tp):
         g_p = shade.shade_bwd_plain(p, gcot, st)
         assert (g_k - g_p).abs().max().item() <= 3e-3 * g_p.abs().max().item()
         assert not g_k[..., static.ke:].any()
+
+
+def test_tritri_on_card_matches_cpu(cuda):
+    """The tritri collision (plain PyTorch, float64 steps in its plane
+    distances) on the card against the CPU: the same intersecting pairs,
+    the loss within rtol 1e-5 and its gradient within 1e-4 of its max."""
+    from homan_tpu_torch.interactions import intersect
+    hand, hf, _ = raster_mesh("hand", b=2)
+    v, f = bumpy_potato(2, 0.05, seed=0)
+    obj = v[None] + hand.mean(1, keepdims=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        h = torch.from_numpy(hand).to(dev).requires_grad_(True)
+        loss = intersect.compute_collision_loss_tritri(
+            h, hf, torch.from_numpy(obj).to(dev), f, 1)
+        loss.backward()
+        tri_h = h.detach()[0][torch.as_tensor(hf, device=dev).long()]
+        tri_o = torch.from_numpy(obj[0]).to(dev)[
+            torch.as_tensor(f, device=dev).long()]
+        out[str(dev)] = (loss.item(), h.grad.cpu().numpy(),
+                         intersect.tri_tri_intersect(tri_h, tri_o).cpu())
+    (lc, gc, mc), (lg, gg, mg) = out["cpu"], out["cuda"]
+    assert lc > 0 and mc.any()
+    assert torch.equal(mc, mg)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    assert np.abs(gg - gc).max() <= 1e-4 * np.abs(gc).max()
+
+
+def test_render_scene_on_card_matches_cpu(cuda):
+    """The overlays' renderer on the card against the CPU: uint8 frames
+    that differ by more than 1 on at most 0.1% of the pixels."""
+    from homan_tpu_torch.viz import render_viz
+    hand, hf, K = raster_mesh("hand", b=2)
+    v, f = bumpy_potato(2, 0.05, seed=0)
+    obj = v[None] + hand.mean(1, keepdims=True) + np.float32([0, 0, 0.05])
+    frames = {d: render_viz.render_scene([obj, hand],
+                                         [f, hf], ["gold", "grey"], K, 128,
+                                         device=d) for d in ("cpu", "cuda")}
+    for a, b in zip(frames["cpu"], frames["cuda"]):
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert (d > 1).any(-1).sum() <= 0.001 * 128 * 128

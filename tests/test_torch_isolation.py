@@ -138,10 +138,64 @@ print("LOADED", bad)
 """
 
 
+_VIZ_SCRIPT = """
+import importlib.util
+import os
+import sys
+import tempfile
+
+
+class Blocked:
+    # Where the card's machine lacks cv2, PIL and matplotlib, the overlays
+    # and the evaluation's videos are still written (PNG, APNG).
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("cv2", "PIL", "matplotlib", "pandas"):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        raise ImportError(f"{spec.name} is not installed")
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+from homan_tpu_torch import native
+from homan_tpu_torch.cli import eval_ho3d, process_meshes
+from homan_tpu_torch.core.meshes import bumpy_potato
+from homan_tpu_torch.eval import report
+from homan_tpu_torch.interactions import intersect
+from homan_tpu_torch.viz import extras, render_viz
+
+torch.set_num_threads(2)
+v, f = bumpy_potato(1, 0.08, seed=0)
+v = v[None] + np.array([0, 0, 0.5], np.float32)
+K = np.array([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]], np.float32)
+frames = render_viz.render_scene([v], [f], ["gold"], K, image_size=64,
+                                 device="cpu")
+with tempfile.TemporaryDirectory() as root:
+    out = render_viz.make_video(frames * 2, os.path.join(root, "a.webm"))
+    assert out.endswith("a.apng") and len(render_viz.read_apng(out)) == 2
+    grid = render_viz.save_image_grid({"r": frames},
+                                      os.path.join(root, "g.png"))
+    assert render_viz.read_apng(grid)[0].shape == (64, 64, 3)
+assert native.edt2d_squared(np.eye(3)).shape == (3, 3)
+tri = torch.from_numpy(v[0][f])
+assert intersect.tri_tri_intersect(tri, tri + 0.01).any()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu", "cv2",
+                                    "PIL", "matplotlib", "pandas"))
+print("LOADED", bad)
+"""
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
@@ -180,6 +234,40 @@ def test_cached_driver_runs_without_jax_pil_or_pandas():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_viz_eval_native_run_without_jax_or_image_libraries():
+    """The modules of the overlays, the evaluation, the report, the tritri
+    collision and the host library import no jax; with cv2, PIL and
+    matplotlib missing the writers still write files the user can open."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _VIZ_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """eval_ho3d.main and render_scene run on `cuda` unless given a device:
+    without CUDA they raise instead of falling back to the CPU."""
+    import argparse
+    from homan_tpu_torch.cli import eval_ho3d
+    from homan_tpu_torch.viz import render_viz
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = argparse.Namespace(results_root=str(tmp_path), split="test",
+                              frame_nb=10, box_mode="gt", chunk_step=1,
+                              mano_root=str(tmp_path), dump_codalab=False,
+                              report=False, render_videos=False,
+                              display_freq=1000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_ho3d.main(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_viz.render_scene([np.zeros((1, 3, 3), np.float32)],
+                                [np.array([[0, 1, 2]])], ["gold"],
+                                np.eye(3, dtype=np.float32)[None])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_ho3d.evaluate_results(str(tmp_path), None, None)
 
 
 def test_sources_never_import_jax_or_the_jax_package():

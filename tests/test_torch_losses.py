@@ -159,19 +159,14 @@ def test_joints_hand_match():
 
 @pytest.mark.parametrize("key", ["lw_collision", "lw_contact", "lw_depth"])
 def test_later_slice_terms_raise(key):
-    """Every term of the JAX package is ported: only the triangle-triangle
-    collision still raises, naming its queue item; contact and ordinal depth
-    (and the SDF collision, in tests/test_torch_sdf.py) compute."""
+    """Every term of the JAX package is ported, the triangle-triangle
+    collision (collision_mode="tritri") included: each term computes; the
+    collision and contact terms raise only without closed_hand_faces."""
     _, ts = scene_pair()
     lw = dict(TL.DEFAULT_LW, **{key: 1.0})
     cfg = dataclasses.replace(ts.cfg, collision_mode="tritri")
     args = (ts.init_state, ts.consts, cfg, lw)
-    if key == "lw_collision":
-        with pytest.raises(NotImplementedError, match="tritri.*item 17"):
-            TL.compute_all_losses(*args,
-                                  closed_hand_faces=ts.closed_hand_faces)
-        return
-    if key == "lw_contact":
+    if key in ("lw_collision", "lw_contact"):
         with pytest.raises(ValueError, match="closed_hand_faces"):
             TL.compute_all_losses(*args)
     loss_dict, _ = TL.compute_all_losses(
