@@ -49,7 +49,13 @@ Phases, each fatal on failure:
        and 64: within 1e-5, inside sets identical, deterministic; the
        inside share, the bound of the work these inputs need (crossing
        test per column, distance per inside point) and the dense sweep's
-       bound `dense_bound_ms` beside it.
+       bound `dense_bound_ms` beside it; then at the JAX launcher's larger
+       grids: G 128 on frame 0's hand (1,552 faces) and object (1,280),
+       G 256 on bumpy_potato(1, 0.07) (80 faces), against the plain
+       version by the same checks, and G 512 and 1,024 on box_mesh()
+       shifted a fraction of a cell (BOX_SHIFT) against the box's analytic
+       interior distance: the same inside set, phi within 1e-5,
+       deterministic (the kernels line's voxelize `grids` keys).
      --ab NAME=PATH builds another source of a kernel with the same C
      interface (the parent commit's, a design variant), checks its output
      against the package's (depth: depth, amax and gpack bit-equal, on the
@@ -144,6 +150,22 @@ Phases, each fatal on failure:
      share) and one of the tritri term alone, its share of the step's
      device time; a small tritri fit (3 frames, 3 steps, 64^2) on the card
      and on the CPU: losses and final states within 3e-3.
+  9. parallel/ (launch overhead, not card capacity, sets these times):
+     the batched clip fit (parallel/clips.py) at bench.py bench_multiclip's
+     full preset, 4 clips x 10 frames x 400 steps at 256^2, tile 128, Ke
+     sized from the demand, twice with counts set to 0 just before each
+     run and read just after (the shade pair 400 times a fit, not 1,600),
+     every clip's loss finite and falling, no edge excess, a 10-step
+     profiler window beside the headline's launch calls; each clip after
+     50 steps within 3e-3 of its own single-clip card fit, the walls per
+     clip side by side; two objects padded by pad_mesh into one batch (5
+     steps), and the shade pair's silhouette and the voxelizer's phi on
+     a padded mesh against the unpadded (1e-5, 1e-6); fit_frames_sharded
+     over 2 entries of the card (8 frames, two hands, 50 steps, 256^2)
+     within 3e-3 of the unsharded fit; the driver with --frames_sharded 1
+     on phase 5's small clip (run there): the warning, and the joint state
+     of the run without the flag within 3e-3; multihost in two processes
+     over gloo; entry.dryrun_multichip(4).
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -166,7 +188,7 @@ FRAMES, ITERS, REND, TILE, KE = 30, 400, 256, 128, 48
 # The interaction fit (bench.py bench_config3, grid SDF) and the
 # ordinal-depth fit (bench.py bench_depth): 10 frames, 512^2 full image.
 FRAMES2, ITERS2, ITERS3, GRID, DEPTH_TILE = 10, 400, 100, 32, 64
-VOX_GRIDS = (16, 32, 64)  # every grid size the voxelizer takes
+VOX_GRIDS = (16, 32, 64)  # the grid sizes of the fits' scene checks
 LW_INTER = {"lw_collision": 1e-3, "lw_contact": 1.0}
 LW_DEPTH = {"lw_depth": 1.0}
 # Stage B (bench.py bench_stageb): 10 frames, 500 candidates, 50 steps a
@@ -658,7 +680,8 @@ def compare_depth(torch, name, face_pack, static, timed):
 
 def compare_voxelize(torch, name, verts, faces, grid, timed):
     """Voxelizer kernel vs its plain version on one mesh batch, in the
-    normalized frame build_scene_sdfs hands it; returns numbers."""
+    normalized frame build_scene_sdfs hands it; returns numbers. Untimed
+    (`timed` False), plain_ms is the wall of the check's one plain call."""
     from homan_tpu_torch.interactions import sdf as S
     from homan_tpu_torch.interactions import voxelize as V
     center, scale = S.normalize_to_unit_box(verts)
@@ -666,8 +689,11 @@ def compare_voxelize(torch, name, verts, faces, grid, timed):
     faces = faces.to(verts.device)
     pack = V.pack_triangles(local, faces)
     k = V.voxelize_pack(pack, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p = S.voxelize_interior_sdf(local, faces, grid)
     torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
     err = float((k - p).abs().max())
     check(err <= 1e-5, f"{name}: phi max err {err} > 1e-5")
     check(torch.equal(k > 0, p > 0), f"{name}: inside sets differ")
@@ -685,12 +711,85 @@ def compare_voxelize(torch, name, verts, faces, grid, timed):
            "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense}
     out["ms"] = time_ms(torch, lambda: V.voxelize_pack(pack, grid))
     out["device_ms"] = device_ms(torch, lambda: V.voxelize_pack(pack, grid))
-    if timed:
-        out["plain_ms"] = time_ms(torch, lambda: S.voxelize_interior_sdf(
-            local, faces, grid), reps=3, warmup=1, inner=1)
+    out["plain_ms"] = (time_ms(torch, lambda: S.voxelize_interior_sdf(
+        local, faces, grid), reps=3, warmup=1, inner=1) if timed
+        else plain_once_ms)
     print(f"voxelize check [{name}] B,F,G={local.shape[0]},{faces.shape[0]},"
           f"{grid}: " + json.dumps(out), flush=True)
     return out, pack
+
+
+# The box of the G 512 and 1,024 checks: core/meshes.py box_mesh() moved
+# by a fraction of a cell in y. Its caps are split along their diagonals,
+# and a column through a diagonal meets both triangles of each cap (the
+# shared edge's function is 0), four crossings, so reads as outside in the
+# plain version and the JAX kernel alike; the shift keeps every diagonal
+# off the cell centres at G 16-1,024 (tests/test_torch_voxelize_grids.py).
+BOX_SHIFT = (0.0, 0.37 / 512, 0.0)
+LARGE_GRIDS = (128, 256, 512, 1024)
+
+
+def compare_voxelize_box(torch, grid):
+    """The kernel at G on the shifted box against the box's analytic
+    interior distance min_i(h_i - |x_i - c_i|): the same inside set, phi
+    within 1e-5, deterministic; its times and bound."""
+    from homan_tpu_torch.core.meshes import box_mesh
+    from homan_tpu_torch.interactions import voxelize as V
+    v, f = box_mesh()
+    v = torch.from_numpy(v + np.asarray(BOX_SHIFT, np.float32))[None].cuda()
+    pack = V.pack_triangles(v, torch.from_numpy(f.astype(np.int64)).cuda())
+    phi = V.voxelize_pack(pack, grid)[0]
+    axis = -1.0 + (2.0 * torch.arange(grid, device="cuda",
+                                      dtype=torch.float32) + 1.0) / grid
+    d = [0.5 - (axis - c).abs() for c in BOX_SHIFT]
+    ref = torch.minimum(torch.minimum(d[0][:, None, None],
+                                      d[1][None, :, None]),
+                        d[2][None, None, :]).clamp_(min=0)
+    inside = ref > 0
+    check(torch.equal(phi > 0, inside), f"box-g{grid}: inside set differs "
+          f"from the box's ({int((phi > 0).sum())} vs {int(inside.sum())})")
+    err = float((phi - ref).abs().max())
+    del ref, d
+    check(err <= 1e-5, f"box-g{grid}: phi max err {err} > 1e-5")
+    n_inside = int(inside.sum())
+    del inside
+    check(torch.equal(phi, V.voxelize_pack(pack, grid)[0]),
+          f"box-g{grid}: voxelizer is not deterministic")
+    del phi
+    bound, bound_by = _bound(pack.numel() * 4 + 4 * grid ** 3,
+                             V.work_ops(f.shape[0], n_inside, grid, 1))
+    out = {"phi_err": err, "inside_share": n_inside / grid ** 3,
+           "bound_ms": bound, "bound_by": bound_by,
+           "ms": time_ms(torch, lambda: V.voxelize_pack(pack, grid),
+                         reps=5, warmup=1, inner=1),
+           "device_ms": device_ms(torch, lambda: V.voxelize_pack(pack, grid)),
+           "plain_ms": None, "reference": "analytic box distance"}
+    torch.cuda.empty_cache()
+    print(f"voxelize check [box-g{grid}] B,F,G=1,{f.shape[0]},{grid}: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def large_grid_checks(torch, v_hand, hand_faces, v_obj, obj_faces):
+    """Phase 2's voxelizer at G 128-1,024 (the JAX launcher's range beyond
+    the fits' 16-64): G 128 on frame 0's hand and object of the
+    interaction fit, G 256 on bumpy_potato(1, 0.07) (80 faces), both
+    against the plain version; G 512 and 1,024 on the shifted box against
+    its analytic distance. Returns {name: row}."""
+    from homan_tpu_torch.core.meshes import bumpy_potato
+    rows = {}
+    for m, v, f in (("hand", v_hand, hand_faces), ("object", v_obj,
+                                                   obj_faces)):
+        rows[f"g128-{m}"], _ = compare_voxelize(
+            torch, f"{m}-g128", v[:1].contiguous(), f, 128, timed=False)
+    pv, pf = bumpy_potato(1, 0.07, seed=0)
+    rows["g256-potato"], _ = compare_voxelize(
+        torch, "potato-g256", torch.from_numpy(pv)[None].cuda(),
+        torch.from_numpy(pf.astype(np.int64)), 256, timed=False)
+    torch.cuda.empty_cache()
+    for grid in (512, 1024):
+        rows[f"g{grid}-box"] = compare_voxelize_box(torch, grid)
+    return rows
 
 
 def build_variant(path):
@@ -2001,6 +2100,8 @@ def driver_phase(torch, root):
         out["card_vs_cpu"] = {"state_rel_err": err,
                               "mask_pixels_differing": diff,
                               "mask_pixels": total}
+        out["frames_sharded_flag"] = sharded_driver_check(torch,
+                                                          small["cuda"])
     finally:
         os.chdir(cwd)
     return out, counts, shade_rows, vox_rows
@@ -2237,6 +2338,322 @@ def tritri_phase(torch, joint, scene, roi, cfg, step_sdf, small,
                             "state_rel_err": state_err}}, counts
 
 
+# Phase 9 (parallel/): bench.py bench_multiclip's full preset, 4 clips x
+# 10 frames x 400 steps at 256^2, tile 128 (bench.py:185-217, 791); the
+# frame-sharded fit of one 8-frame two-hand clip over 2 entries of the card.
+CLIPS9, FRAMES9, ITERS9, CHECK_ITERS9 = 4, 10, 400, 50
+SHARD_FRAMES9, SHARD_ITERS9, SHARD_ENTRIES9 = 8, 50, 2
+
+_MULTIHOST_WORKER = """
+import json, sys
+from homan_tpu_torch.parallel import multihost
+pid, coord = int(sys.argv[1]), sys.argv[2]
+multihost.initialize(coordinator_address=coord, num_processes=2,
+                     process_id=pid)
+idxs = multihost.host_sample_indices(total=10)
+got = multihost.allgather_metrics({"metric": [100.0 * pid + i
+                                              for i in idxs],
+                                   "count": [float(len(idxs))]})
+print(json.dumps({"idxs": list(map(int, idxs)),
+                  "metric": [float(x) for x in got["metric"]],
+                  "count": [float(x) for x in got["count"]]}))
+import torch.distributed as dist
+dist.destroy_process_group()
+"""
+
+
+def multihost_check():
+    """parallel/multihost.py in two processes over gloo (localhost): the
+    sample indices split disjointly and completely, and both processes
+    gather both processes' metrics. Every process is stopped."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIHOST_WORKER, str(pid),
+         f"localhost:{port}"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            check(p.returncode == 0, f"multihost worker failed: {err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    idxs = sorted(outs[0]["idxs"] + outs[1]["idxs"])
+    check(idxs == list(range(10)) and not set(outs[0]["idxs"])
+          & set(outs[1]["idxs"]), f"multihost: indices {outs}")
+    check(outs[0]["metric"] == outs[1]["metric"]
+          and len(outs[0]["metric"]) == 10
+          and sorted(outs[0]["count"]) == [5.0, 5.0],
+          f"multihost: allgather {outs}")
+    print("multihost (2 processes, gloo): " + json.dumps(outs), flush=True)
+    return {"indices": [o["idxs"] for o in outs], "ok": True}
+
+
+def state_rel_err(a, b):
+    """Each field's max |a - b| over the max |b|."""
+    return {k: float((getattr(a, k).cpu() - v.cpu()).abs().max()
+                     / max(float(v.abs().max()), 1e-30))
+            for k, v in vars(b).items() if v is not None}
+
+
+def parallel_phase(torch, headline_launches):
+    """Phase 9: parallel/ on the card. (a) the batched clip fit at
+    bench_multiclip's full preset twice, counts read around each run: the
+    shade pair launches once a step, each clip's loss finite and falling,
+    no edge excess; a 10-step profiler window; (b) each clip after 50
+    steps against its own single-clip card fit (within 3e-3), the walls
+    per clip side by side; (c) heterogeneous buckets: two objects padded by
+    pad_mesh, 5 batched steps, the shade and voxelizer outputs on the
+    padded meshes against the unpadded; (d) fit_frames_sharded over 2
+    entries of the card against the unsharded fit; (e) multihost in two
+    processes; (f) entry.dryrun_multichip(4). Returns (record, counts of
+    the second batched run)."""
+    import dataclasses
+
+    from homan_tpu_torch import entry
+    from homan_tpu_torch.core.mano import ManoLayer
+    from homan_tpu_torch.core.meshes import bumpy_potato, pad_mesh
+    from homan_tpu_torch.fit import joint
+    from homan_tpu_torch.fit import model as M
+    from homan_tpu_torch.frontend.gtsynth import make_synthetic_scene
+    from homan_tpu_torch.interactions import voxelize as V
+    from homan_tpu_torch.parallel import clips as par
+    from homan_tpu_torch.parallel import frames as fpar
+    from homan_tpu_torch.render import rasterizer as R
+
+    out = {}
+    layer = ManoLayer.synthetic(0, device="cuda")
+    obj = bumpy_potato(3, 0.08, seed=0)
+    scenes = [make_synthetic_scene(
+        random_rotation(i), seed=i, frame_nb=FRAMES9, image_size=2 * REND,
+        rend_size=REND, mano_layer=layer, obj_mesh=obj, device="cuda")
+        for i in range(CLIPS9)]
+    states = par.stack_clips([s.init_state for s in scenes])
+    consts = par.stack_clips([s.consts for s in scenes])
+    cfg = scenes[0].cfg
+    base = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=KE)
+    kes = []
+    for s in scenes:
+        with torch.no_grad():
+            v, _ = M.get_verts_object(s.init_state, s.consts)
+        kes.append(sized_edges(R, v, s.consts.faces_object,
+                               s.consts.camintr_rois_object, base))
+    ke = max(k for k, _ in kes)
+    settings = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=ke)
+    print(f"multiclip: {CLIPS9} clips x {FRAMES9} frames, edge demand "
+          f"{[d['max_demand'] for _, d in kes]} (Ke {KE} overflows: "
+          f"{any(d['overflow'] for _, d in kes)}); the fit runs Ke {ke}",
+          flush=True)
+
+    def batched(iters):
+        return par.fit_clips_batched(states, consts, cfg,
+                                     num_iterations=iters,
+                                     roi_settings=settings, device="cuda")
+
+    walls = []
+    for i in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, hist = batched(ITERS9)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        print(f"multiclip run {i + 1}: {ITERS9} steps in {walls[-1]:.3f} s "
+              f"({walls[-1] / ITERS9 * 1e3:.3f} ms/step, "
+              f"{walls[-1] / CLIPS9:.3f} s a clip); launches "
+              + json.dumps(counts), flush=True)
+        expect = {"shade_fwd": ITERS9, "shade_bwd": ITERS9, "depth_fwd": 0,
+                  "depth_bwd": 0, "voxelize": 0, "shade_fwd_only": 0}
+        check(counts == expect, f"multiclip: launches {counts}, the path's "
+              f"count is {expect}")
+        loss = hist["loss"].cpu()
+        check(bool(torch.isfinite(loss).all()), "multiclip: loss not finite")
+        check(bool((loss[:, -1] < loss[:, 0]).all()),
+              f"multiclip: a clip's loss did not fall: {loss[:, [0, -1]]}")
+        check(float(hist["edge_budget_excess"].max()) <= 0,
+              "multiclip: edge budget overflowed during the fit")
+    print("multiclip loss per clip: " + json.dumps(
+        [[float(a), float(b)] for a, b in loss[:, [0, -1]]]), flush=True)
+    window = profile_window(torch, lambda: batched(10), 10, "multiclip")
+    print(f"multiclip launch calls per step {window['launch_calls_per_step']}"
+          f" for {CLIPS9} clips; the headline fit's (30 frames, one clip) "
+          f"{headline_launches}", flush=True)
+    out["multiclip"] = {
+        "clips": CLIPS9, "frames": FRAMES9, "iters": ITERS9, "rend": REND,
+        "tile": TILE, "ke": ke, "first_wall_s": walls[0],
+        "second_wall_s": walls[1], "ms_per_step": walls[1] / ITERS9 * 1e3,
+        "wall_s_per_clip": walls[1] / CLIPS9, "profiled": window,
+        "headline_launch_calls_per_step": headline_launches}
+
+    # (b) Each clip against its own single-clip fit, 50 steps.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final50, _ = batched(CHECK_ITERS9)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    errs, wall_s = [], 0.0
+    for i, sc in enumerate(scenes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single, _ = joint.optimize_hand_object(
+            sc.init_state, sc.consts, cfg, num_iterations=CHECK_ITERS9,
+            roi_settings=settings, device="cuda")
+        torch.cuda.synchronize()
+        wall_s += time.perf_counter() - t0
+        errs.append(state_rel_err(final50.map(lambda x, i=i: x[i]), single))
+    worst = max(max(e.values()) for e in errs)
+    print(f"multiclip vs single-clip card fits, {CHECK_ITERS9} steps: state "
+          f"max rel err {worst:.3g}; wall per clip batched "
+          f"{wall_b / CLIPS9:.3f} s, single {wall_s / CLIPS9:.3f} s",
+          flush=True)
+    check(worst <= 3e-3, f"multiclip: a clip differs from its single fit: "
+          f"{errs}")
+    out["multiclip"]["vs_single"] = {
+        "iters": CHECK_ITERS9, "state_max_rel_err": worst,
+        "batched_wall_s_per_clip": wall_b / CLIPS9,
+        "single_wall_s_per_clip": wall_s / CLIPS9}
+
+    # (c) Heterogeneous buckets: two objects padded to one bucket.
+    meshes = [bumpy_potato(2, 0.08, seed=1), bumpy_potato(1, 0.07, seed=2)]
+    vb = max(m[0].shape[0] for m in meshes)
+    fb = max(m[1].shape[0] for m in meshes)
+    padded = [pad_mesh(v, f, vb, fb) for v, f in meshes]
+    topos = [R.MeshTopology.from_faces(f, device="cuda") for _, f in padded]
+    eb = max(t.edges.shape[0] for t in topos)
+
+    def pad_topo(t):
+        n = eb - t.edges.shape[0]
+        z = dict(device="cuda", dtype=torch.int64)
+        return R.MeshTopology(
+            faces=t.faces, edges=torch.cat([t.edges, torch.zeros((n, 2),
+                                                                 **z)]),
+            edge_faces=torch.cat([t.edge_faces, torch.full((n, 2), -1,
+                                                           **z)]),
+            edge_dir_f1=torch.cat([t.edge_dir_f1, torch.zeros(
+                n, dtype=torch.bool, device="cuda")]))
+
+    het = []
+    for (vp, fp), t in zip(padded, topos):
+        sc = make_synthetic_scene(random_rotation(7), seed=7, frame_nb=2,
+                                  image_size=64, rend_size=32,
+                                  mano_layer=layer, obj_mesh=(vp, fp),
+                                  device="cuda")
+        het.append(dataclasses.replace(sc, consts=dataclasses.replace(
+            sc.consts, faces_object=pad_topo(t))))
+    _, h_het = par.fit_clips_batched(
+        par.stack_clips([x.init_state for x in het]),
+        par.stack_clips([x.consts for x in het]), het[0].cfg,
+        num_iterations=5, roi_settings=het[0].roi_settings, device="cuda")
+    check(tuple(h_het["loss"].shape) == (2, 5)
+          and bool(torch.isfinite(h_het["loss"]).all()),
+          f"heterogeneous clips: loss {h_het['loss']}")
+    v, f = bumpy_potato(2, 0.3, seed=2)
+    vp, fp = pad_mesh(v, f, v.shape[0] + 37, f.shape[0] + 53)
+    K = torch.tensor([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]],
+                     device="cuda")
+    st = R.RasterSettings(image_size=64, tile_px=16, edges_per_tile=384)
+    shift = torch.tensor([0, 0, 1.0], device="cuda")
+    reset_counts()
+    sils = [R.rasterize_soft(torch.from_numpy(a).cuda()[None] + shift,
+                             R.MeshTopology.from_faces(b, device="cuda"), K,
+                             st)["sil"] for a, b in ((v, f), (vp, fp))]
+    phis = [V.voxelize(torch.from_numpy(a).cuda()[None],
+                       torch.from_numpy(b.astype(np.int64)).cuda(), 32)
+            for a, b in ((v, f), (vp, fp))]
+    pad_counts = read_counts()
+    sil_err = float((sils[1] - sils[0]).abs().max())
+    phi_err = float((phis[1] - phis[0]).abs().max())
+    print(f"pad_mesh on the card: silhouette max err {sil_err:.3g}, phi max "
+          f"err {phi_err:.3g}; launches " + json.dumps(pad_counts),
+          flush=True)
+    check(pad_counts["shade_fwd_only"] == 2 and pad_counts["voxelize"] == 2,
+          f"pad_mesh check did not run the kernels: {pad_counts}")
+    check(sil_err <= 1e-5 and phi_err <= 1e-6 and bool((phis[0] > 0).any()),
+          f"pad_mesh changed the kernels' outputs: {sil_err} {phi_err}")
+    out["heterogeneous"] = {"loss": h_het["loss"].cpu().tolist(),
+                            "pad_sil_err": sil_err, "pad_phi_err": phi_err}
+
+    # (d) One clip's frames over two entries of the card.
+    sc = make_synthetic_scene(
+        random_rotation(3), seed=3, frame_nb=SHARD_FRAMES9,
+        hand_sides=("left", "right"), image_size=2 * REND, rend_size=REND,
+        mano_layer=layer, obj_mesh=obj, device="cuda")
+    with torch.no_grad():
+        v, _ = M.get_verts_object(sc.init_state, sc.consts)
+    ke_s, _ = sized_edges(R, v, sc.consts.faces_object,
+                          sc.consts.camintr_rois_object, base)
+    st = R.RasterSettings(REND, tile_px=TILE, edges_per_tile=ke_s)
+    fmesh = fpar.make_frame_mesh(devices=["cuda"] * SHARD_ENTRIES9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded, hs = fpar.fit_frames_sharded(
+        sc.init_state, sc.consts, sc.cfg, fmesh,
+        num_iterations=SHARD_ITERS9, roi_settings=st)
+    torch.cuda.synchronize()
+    wall_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single, h1 = joint.optimize_hand_object(
+        sc.init_state, sc.consts, sc.cfg, num_iterations=SHARD_ITERS9,
+        roi_settings=st, device="cuda")
+    torch.cuda.synchronize()
+    wall_un = time.perf_counter() - t0
+    err = state_rel_err(sharded, single)
+    loss_err = float(((hs["loss"] - h1["loss"]).abs()
+                      / h1["loss"].abs()).max())
+    print(f"frame-sharded fit ({SHARD_FRAMES9} frames, 2 hands, "
+          f"{SHARD_ENTRIES9} entries of one card, {SHARD_ITERS9} steps): "
+          f"{wall_sh:.3f} s, unsharded {wall_un:.3f} s; loss max rel err "
+          f"{loss_err:.3g}, state max rel err " + json.dumps(err),
+          flush=True)
+    check(max(err.values()) <= 3e-3 and loss_err <= 3e-3,
+          f"frame-sharded fit differs from the unsharded one: {err}")
+    out["frames_sharded"] = {
+        "frames": SHARD_FRAMES9, "entries": SHARD_ENTRIES9,
+        "iters": SHARD_ITERS9, "wall_s": wall_sh, "unsharded_wall_s": wall_un,
+        "loss_max_rel_err": loss_err, "state_max_rel_err": max(err.values())}
+
+    # (e) Two processes over gloo; (f) the dry run.
+    out["multihost"] = multihost_check()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    out["dryrun_multichip_s"] = time.perf_counter() - t0
+    return out, counts
+
+
+def sharded_driver_check(torch, small_cuda):
+    """Phase 9's driver check, on phase 5's small clip (in its tree): the
+    card driver with --frames_sharded 1 logs the JAX driver's warning (one
+    card: no split) and writes the joint state of the run without the
+    flag, within 3e-3 of each array's maximum."""
+    from homan_tpu_torch.cli import fit_video
+    args = fit_video.get_args(SMALL_DRIVER_ARGV + ["--frames_sharded", "1",
+                                                   "--result_root",
+                                                   "small_sharded"])
+    with logged_warnings(fit_video.logger.name) as warnings:
+        fit_video.main(args, device="cuda")
+    check(any("don't split over the available devices" in w
+              for w in warnings), f"--frames_sharded 1: no warning in "
+          f"{warnings}")
+    state = driver_outputs("small_sharded")[1]
+    ref = small_cuda[1]
+    err = {k: float(np.abs(state[k] - ref[k]).max()
+                    / max(np.abs(ref[k]).max(), 1e-30)) for k in ref}
+    print("driver --frames_sharded 1 vs without, small clip on the card: "
+          "joint state max rel err " + json.dumps(err), flush=True)
+    check(max(err.values()) <= 3e-3, f"--frames_sharded 1 changed the "
+          f"small clip's fit: {err}")
+    return {"warned": True, "state_max_rel_err": max(err.values())}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2387,6 +2804,8 @@ def main(argv=None) -> int:
         for grid in VOX_GRIDS:
             vox_results[(m, grid)], vox_packs[(m, grid)] = compare_voxelize(
                 torch, f"{m}-g{grid}", v, f, grid, timed=grid == GRID)
+    vox_large = large_grid_checks(torch, v_hand2, scene2.closed_hand_faces,
+                                  v_obj2, c2.faces_object.faces)
     if ab:
         ab_compare(torch, ab, {m: vox_packs[(m, GRID)] for m in meshes},
                    shade_inputs, depth_packs)
@@ -2484,6 +2903,12 @@ def main(argv=None) -> int:
         torch, joint, scene2, roi2, cfg_tritri,
         step2["device_busy_ms_per_step"], small, small_set)
     phase_done(8)
+
+    # 9. parallel/: batched clips, frame sharding, multihost, the dry run --
+    parallel, multiclip_counts = parallel_phase(
+        torch, step1["launch_calls_per_step"])
+    parallel["driver_frames_sharded"] = driver.pop("frames_sharded_flag")
+    phase_done(9)
 
     # Result lines ------------------------------------------------------------
     h = results["fit"]
@@ -2592,6 +3017,7 @@ def main(argv=None) -> int:
         k["launches_per_cached_clip"] = cached_counts[k["name"]]
         k["launches_per_eval"] = eval_counts[k["name"]]
         k["launches_per_tritri_fit"] = tritri_counts[k["name"]]
+        k["launches_per_multiclip_fit"] = multiclip_counts[k["name"]]
     for part, shade_rows, vox_rows in (("driver", d_shade, d_vox),
                                        ("cached", c_shade, c_vox)):
         for k in kernels[:2]:
@@ -2620,6 +3046,12 @@ def main(argv=None) -> int:
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "max_abs_err": r["phi_err"],
                    "library_ms": None} for name, r in vox_rows.items()}
+    # The voxelizer at G 128-1,024 (phase 2), under "grids".
+    kernels[4]["grids"] = {
+        name: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "inside_share")}
+        | {"max_abs_err": r["phi_err"], "library_ms": None}
+        for name, r in vox_large.items()}
     fits = {
         "fit": {"frames": FRAMES, "iters": ITERS, "rend": REND, "tile": TILE,
                 "ke": ke_fit, "first_wall_s": walls1[0],
@@ -2641,10 +3073,11 @@ def main(argv=None) -> int:
         "cached_driver": cached,
         "evaluation": evaluation,
         "tritri_fit": tritri,
+        "parallel": parallel,
     }
     rows = [(k["name"], k) for k in kernels] + [
         (f"{k['name']} {name}", r) for k in kernels
-        for part in ("stage_b", "driver", "cached", "eval")
+        for part in ("stage_b", "driver", "cached", "eval", "grids")
         for name, r in k.get(part, {}).items() if isinstance(r, dict)]
     for label, r in rows:
         for key in ("ms", "device_ms"):

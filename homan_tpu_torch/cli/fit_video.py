@@ -26,12 +26,14 @@ Run on the card:
       --evidence_root DIR
 or on the CPU from Python: main(get_args([...]), device="cpu").
 
-Not ported yet, and refused with NotImplementedError: --frames_sharded 1
-(ROADMAP.md Queue 1 item 19).
+--frames_sharded 1 splits stage C's frames over the CUDA devices
+(parallel/frames.py), over as many as divide the clip; where only one
+does (one card), it logs a warning and fits unsharded, as the JAX driver.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import pickle
@@ -48,6 +50,7 @@ from homan_tpu_torch.eval import pointmetrics
 from homan_tpu_torch.fit import joint, postprocess
 from homan_tpu_torch.fit import model as M
 from homan_tpu_torch.frontend import cachedfit, gtevidence
+from homan_tpu_torch.parallel import frames as fpar
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                auto_edge_settings,
                                                bump_edge_settings)
@@ -126,9 +129,10 @@ def get_args(argv=None):
                              "chaining them")
     parser.add_argument("--frames_sharded", choices=[0, 1], default=0,
                         type=int,
-                        help="shard stage C's frames over devices; not "
-                             "ported yet (ROADMAP.md Queue 1 item 19): 1 "
-                             "raises NotImplementedError")
+                        help="shard stage C's frames over the CUDA "
+                             "devices that divide the clip "
+                             "(parallel/frames.py); unsharded, with a "
+                             "warning, where only one does")
     parser.add_argument("--prewarm", choices=[0, 1], default=1, type=int,
                         help="accepted for the JAX driver's flags: it "
                              "compiles stage C while stages A and B run; "
@@ -225,12 +229,11 @@ def build_joint_inputs(person_parameters, object_parameters, obj_verts_can,
     return state, consts, cfg
 
 
-def refuse_unported(args):
-    """NotImplementedError for the flags whose code is not ported yet."""
-    if args.frames_sharded:
-        raise NotImplementedError(
-            "--frames_sharded 1 (parallel/frames.py) is not ported yet: "
-            "ROADMAP.md Queue 1 item 19")
+def _frames_shard_devices(frame_nb: int, device) -> int:
+    """Largest count of the devices of `device`'s kind that divides the
+    clip length (whole frames per device); 1 = not applicable."""
+    ndev = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(d for d in range(1, ndev + 1) if frame_nb % d == 0)
 
 
 def _sample_metrics(annots, state, final_state, consts, cfg, device):
@@ -326,7 +329,6 @@ def main(args, device=None):
     (each overlay render's tile, Kf and face demand by tile)}.
     """
     device = resolve_device(device)
-    refuse_unported(args)
     np.random.seed(args.seed)
     dataset, image_size = get_dataset(args.dataset, split=args.split,
                                       frame_nb=args.frame_nb,
@@ -455,6 +457,20 @@ def main(args, device=None):
                 logger.warning("viz_step render failed: %s", exc,
                                exc_info=True)
 
+        fit = functools.partial(joint.optimize_hand_object, device=device)
+        if args.frames_sharded:
+            frame_nb = state.translations_object.shape[0]
+            use = _frames_shard_devices(frame_nb, device)
+            if use > 1:
+                fmesh = fpar.make_frame_mesh(use)
+                fit = functools.partial(fpar.fit_frames_sharded, mesh=fmesh)
+                logger.info("stage C frame axis sharded over %d devices",
+                            use)
+            else:
+                logger.warning(
+                    "--frames_sharded: %d frames don't split over the "
+                    "available devices; running unsharded", frame_nb)
+
         # The runtime backstop: every step re-measures the demand
         # (edge_budget_excess). A positive excess means the fit dropped
         # contour edges somewhere: discard it, bump the budget past the
@@ -465,14 +481,13 @@ def main(args, device=None):
             cur = roi_settings or default_settings
             optim_frames.clear()
             with timers.time("stageC_joint_fit", sync=True):
-                final_state, history = joint.optimize_hand_object(
+                final_state, history = fit(
                     state, consts, cfg, loss_weights=loss_weights,
                     num_iterations=args.num_joint_iterations,
                     closed_hand_faces=closed_hand_faces,
                     roi_settings=roi_settings,
                     viz_step=args.viz_step or None,
-                    viz_callback=viz_callback if args.viz_step else None,
-                    device=device)
+                    viz_callback=viz_callback if args.viz_step else None)
             excess = (float(history["edge_budget_excess"].max())
                       if "edge_budget_excess" in history else 0.0)
             attempts.append({"tile_px": cur.tile_px,

@@ -5,6 +5,12 @@ included), HomanConfig and the scene's closed-hand faces are handed over as
 numpy arrays in plain dicts (field name -> array, nested dicts for the
 topologies and MANO params), so this module needs neither jax nor the JAX
 package. Both sides then compute the same thing from the same values.
+Stacked trees (parallel/clips.py's leading clip axis) convert the same way.
+
+An optax Adam state (the JAX fit's `opt_state`, one ScaleByAdamState per
+label of its multi_transform) is handed over as {label: {"count", "mu":
+{field: array}, "nu": {field: array}}}, the layout of the port's
+fit/joint.py `adam_state`.
 """
 from __future__ import annotations
 
@@ -69,3 +75,25 @@ def consts_from_numpy(d: Dict[str, Any], device=None) -> M.HomanConsts:
 def faces_from_numpy(a, device=None) -> torch.Tensor:
     """(F, 3) int64 faces, e.g. the JAX scene's closed_hand_faces."""
     return _tensor(a, resolve_device(device))
+
+
+def adam_state_from_optax(d: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The port's Adam state (fit/joint.py adam_state) from an optax
+    state's numpy layout (module docstring); labels with no field (optax's
+    masked-out groups) are dropped."""
+    dev = resolve_device(device)
+    return {label: {"count": int(np.asarray(g["count"])),
+                    "mu": {k: _tensor(v, dev) for k, v in g["mu"].items()},
+                    "nu": {k: _tensor(v, dev) for k, v in g["nu"].items()}}
+            for label, g in d.items() if g["mu"]}
+
+
+def adam_state_to_optax(opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The numpy layout of an optax state from the port's Adam state
+    (counts as int32, as optax keeps them)."""
+    return {label: {"count": np.asarray(g["count"], np.int32),
+                    "mu": {k: v.detach().cpu().numpy()
+                           for k, v in g["mu"].items()},
+                    "nu": {k: v.detach().cpu().numpy()
+                           for k, v in g["nu"].items()}}
+            for label, g in opt_state.items()}

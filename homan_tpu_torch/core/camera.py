@@ -17,6 +17,11 @@ def batch_proj2d(verts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return proj[..., :2] / torch.clamp(proj[..., 2:3], min=1e-9)
 
 
+def project_points(verts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Like batch_proj2d but (B, V, 3) (u, v, z) with z the camera depth."""
+    return torch.cat([batch_proj2d(verts, K), verts[..., 2:3]], dim=-1)
+
+
 def compute_transformation_persp(meshes, translations, rotations=None,
                                  intrinsic_scales=None):
     """scale -> rotate (row vectors, v @ R) -> translate.
@@ -102,3 +107,53 @@ def get_K_crop_resize_np(K, boxes_xyxy, target_size: int):
     out[:, 1, 2] = (K[:, 1, 2] - boxes[:, 1]) * sy
     out[:, 2, 2] = 1.0
     return out
+
+
+def get_K_crop_resize(K: torch.Tensor, boxes_xyxy: torch.Tensor,
+                      target_size: int) -> torch.Tensor:
+    """Pixel intrinsics (B, 3, 3) valid inside the crops `boxes_xyxy`
+    (B, 4) resized to target_size^2 (homan_tpu/core/camera.py:139); the
+    tensor twin of get_K_crop_resize_np."""
+    x1, y1, x2, y2 = boxes_xyxy.unbind(-1)
+    sx = target_size / torch.clamp(x2 - x1, min=1e-9)
+    sy = target_size / torch.clamp(y2 - y1, min=1e-9)
+    fx = K[:, 0, 0] * sx
+    fy = K[:, 1, 1] * sy
+    cx = (K[:, 0, 2] - x1) * sx
+    cy = (K[:, 1, 2] - y1) * sy
+    skew = K[:, 0, 1] * sx
+    zeros = torch.zeros_like(fx)
+    ones = torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, skew, cx], dim=-1),
+                        torch.stack([zeros, fy, cy], dim=-1),
+                        torch.stack([zeros, zeros, ones], dim=-1)], dim=-2)
+
+
+def compute_K_roi(upper_left, b, img_size, focal_length: float = 1.0,
+                  device=None) -> torch.Tensor:
+    """Normalized intrinsics (1, 3, 3) of a square ROI crop with upper-left
+    corner `upper_left` and side `b` (homan/utils/camera.py:39-56)."""
+    x1, y1 = upper_left
+    f = focal_length * img_size / b
+    px = (img_size / 2 - x1) / b
+    py = (img_size / 2 - y1) / b
+    return torch.tensor([[[f, 0, px], [0, f, py], [0, 0, 1]]],
+                        dtype=torch.float32, device=device)
+
+
+def local_to_global_cam(bboxes: torch.Tensor, cams: torch.Tensor,
+                        L: float) -> torch.Tensor:
+    """Weak-perspective cameras (N, 3) relative to the xyxy boxes (N, 4) ->
+    relative to the full image of longest side L (camera.py:9-36)."""
+    from homan_tpu_torch.core import bbox as bbox_ops
+    square = bbox_ops.make_bbox_square(
+        bbox_ops.bbox_xy_to_wh(bboxes.detach().cpu().numpy()))
+    square = torch.as_tensor(square, dtype=cams.dtype, device=cams.device)
+    x, y, b = square[:, 0], square[:, 1], square[:, 2]
+    s_crop = b * cams[:, 0] / 2
+    t_crop = cams[:, 1:] + 1.0 / cams[:, 0:1]
+    s_og = s_crop / L
+    t_og = t_crop + torch.stack([x, y], dim=-1) / s_crop[:, None]
+    s = s_og * 2
+    t = t_og - 0.5 / s_og[:, None]
+    return torch.cat([s[:, None], t], dim=1)

@@ -120,3 +120,48 @@ def random_rotations(n: int, generator: torch.Generator | None = None,
     else:
         R = arvo_rotations(u)
     return R.to(device) if device is not None else R
+
+
+def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle (..., 3), column
+    convention (homan_tpu/core/geometry.py:78)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_theta = torch.sin(theta)[..., None]
+    t = theta[..., None]
+    scale = torch.where(sin_theta > 1e-6,
+                        t / torch.clamp(2.0 * sin_theta, min=1e-12),
+                        0.5 + t ** 2 / 12.0)  # small-angle series
+    return w * scale
+
+
+def center_vertices(vertices: torch.Tensor, faces: torch.Tensor,
+                    flip_y: bool = True):
+    """Centroid-align (V, 3) vertices; optionally flip y (image coords) and
+    rewind the (F, 3) faces."""
+    vertices = vertices - vertices.mean(dim=0, keepdim=True)
+    if flip_y:
+        vertices = vertices * torch.tensor([1.0, -1.0, 1.0],
+                                           dtype=vertices.dtype,
+                                           device=vertices.device)
+        faces = faces.flip(-1)
+    return vertices, faces
+
+
+def compute_dist_z(verts1: torch.Tensor, verts2: torch.Tensor):
+    """Gap between the z-extents of two (V, 3) vertex sets; 0 where they
+    overlap."""
+    a, b = verts1[:, 2].min(), verts1[:, 2].max()
+    c, d = verts2[:, 2].min(), verts2[:, 2].max()
+    overlap = (d >= a) & (b >= c)
+    gap = torch.minimum((c - b).abs(), (a - d).abs())
+    return torch.where(overlap, torch.zeros_like(gap), gap)
+
+
+def combine_verts(verts_list) -> torch.Tensor:
+    """Concatenate (B, V_i, 3) vertex sets along the vertex axis."""
+    b = verts_list[0].shape[0]
+    return torch.cat([v.reshape(b, -1, 3) for v in verts_list], dim=1)

@@ -196,11 +196,11 @@ def _rigid_transforms(rot_mats: torch.Tensor, joints: torch.Tensor,
     rel = joints - torch.where(has_parent[None, :, None], joints[:, par],
                                torch.zeros((), dtype=joints.dtype,
                                            device=joints.device))
-    local_T = torch.zeros((B, J, 4, 4), dtype=joints.dtype,
-                          device=joints.device)
-    local_T[:, :, :3, :3] = rot_mats
-    local_T[:, :, :3, 3] = rel
-    local_T[:, :, 3, 3] = 1.0
+    # Built out of place, so the chain also runs under torch.func.vmap.
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=joints.dtype,
+                          device=joints.device).expand(B, J, 1, 4)
+    local_T = torch.cat([torch.cat([rot_mats, rel[..., None]], dim=-1),
+                         bottom], dim=-2)
     world = [local_T[:, 0]]
     for j in range(1, J):
         world.append(world[parents_np[j]] @ local_T[:, j])
@@ -259,6 +259,20 @@ def pca_to_axis_angle(params: Dict[str, Any], pca_pose: torch.Tensor,
     if not flat_hand_mean:
         aa = aa + params["hands_mean"]
     return aa
+
+
+def axis_angle_to_pca(params: Dict[str, Any], aa_pose: torch.Tensor,
+                      ncomps: int = 45, is_left: bool = False,
+                      flat_hand_mean: bool = False) -> torch.Tensor:
+    """Inverse of pca_to_axis_angle (homan/datasets/manoutils.py:41-58):
+    through the model's orthogonal (45, 45) PCA basis."""
+    if not flat_hand_mean:
+        aa_pose = aa_pose - params["hands_mean"]
+    if is_left:
+        sign = torch.tensor([1.0, -1.0, -1.0], dtype=aa_pose.dtype,
+                            device=aa_pose.device).repeat(NUM_POSE_DIMS // 3)
+        aa_pose = aa_pose * sign
+    return (aa_pose @ params["hands_components"].T)[..., :ncomps]
 
 
 def add_tips_and_reorder(verts: torch.Tensor,

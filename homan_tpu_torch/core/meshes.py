@@ -110,6 +110,42 @@ def bumpy_potato(subdivisions: int = 2, radius: float = 1.0, seed: int = 0):
     return v.astype(np.float32), f
 
 
+def box_mesh(half_extents=(0.5, 0.5, 0.5)):
+    """Axis-aligned closed box, 8 verts / 12 triangles (outward winding)."""
+    hx, hy, hz = half_extents
+    v = np.array([[sx * hx, sy * hy, sz * hz]
+                  for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                 np.float32)
+    f = np.array([
+        [0, 1, 3], [0, 3, 2],  # -x
+        [4, 6, 7], [4, 7, 5],  # +x
+        [0, 4, 5], [0, 5, 1],  # -y
+        [2, 3, 7], [2, 7, 6],  # +y
+        [0, 2, 6], [0, 6, 4],  # -z
+        [1, 5, 7], [1, 7, 3],  # +z
+    ], np.int32)
+    return v, f
+
+
+def cylinder_mesh(radius: float = 0.5, height: float = 1.0, n_seg: int = 16):
+    """Closed cylinder along z: 2*n_seg rim verts + 2 cap centers."""
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    ring = np.stack([radius * np.cos(ang), radius * np.sin(ang)], axis=1)
+    top = np.concatenate([ring, np.full((n_seg, 1), height / 2)], axis=1)
+    bot = np.concatenate([ring, np.full((n_seg, 1), -height / 2)], axis=1)
+    v = np.concatenate([top, bot,
+                        [[0, 0, height / 2]], [[0, 0, -height / 2]]],
+                       axis=0).astype(np.float32)
+    ct, cb = 2 * n_seg, 2 * n_seg + 1
+    f = []
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        f += [[i, j, ct],                      # top cap
+              [n_seg + j, n_seg + i, cb],      # bottom cap
+              [i, n_seg + i, j], [j, n_seg + i, n_seg + j]]  # side
+    return v, np.asarray(f, np.int32)
+
+
 def merge_meshes(meshes):
     """Concatenate (verts, faces) pairs into one mesh with offset faces."""
     verts, faces, off = [], [], 0
@@ -191,3 +227,51 @@ def get_faces_and_textures(verts_list: Sequence[np.ndarray],
         all_colors.append(np.tile(color, (B * faces.shape[0], 1)))
     return (np.concatenate(all_faces)[None].astype(np.int32),
             np.concatenate(all_colors)[None])
+
+
+def decimate(verts: np.ndarray, faces: np.ndarray, target_faces: int):
+    """Vertex-clustering decimation for coarse-fit meshes
+    (homan_tpu/core/meshes.py:164): the finest of the grids 64, 62, ... 4
+    per axis whose clusters leave at most `target_faces` faces, each
+    cluster's vertices averaged and collapsed faces dropped (the coarsest
+    grid's result where none does). `native.decimate` is the QEM one."""
+    verts = np.asarray(verts, np.float64)
+    faces = np.asarray(faces, np.int64)
+    if faces.shape[0] <= target_faces:
+        return verts.astype(np.float32), faces.astype(np.int32)
+    lo, hi = verts.min(0), verts.max(0)
+    extent = np.maximum(hi - lo, 1e-9)
+    best = None
+    for res in range(64, 2, -2):
+        cell = np.floor((verts - lo) / extent * (res - 1e-6)).astype(np.int64)
+        key = cell[:, 0] * res * res + cell[:, 1] * res + cell[:, 2]
+        uniq, inverse = np.unique(key, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        new_verts = np.zeros((len(uniq), 3))
+        counts = np.bincount(inverse, minlength=len(uniq)).astype(np.float64)
+        for c in range(3):
+            new_verts[:, c] = np.bincount(
+                inverse, weights=verts[:, c], minlength=len(uniq)) / counts
+        new_faces = inverse[faces]
+        keep = ((new_faces[:, 0] != new_faces[:, 1])
+                & (new_faces[:, 1] != new_faces[:, 2])
+                & (new_faces[:, 0] != new_faces[:, 2]))
+        best = (new_verts.astype(np.float32),
+                new_faces[keep].astype(np.int32))
+        if best[1].shape[0] <= target_faces:
+            break
+    return best
+
+
+def pad_mesh(verts: np.ndarray, faces: np.ndarray, vert_bucket: int,
+             face_bucket: int):
+    """Pad a mesh to static sizes so clips of different objects stack
+    (parallel/clips.py): padding vertices collapse onto vertex 0, padding
+    faces are degenerate (0, 0, 0) triangles, which add no contour edge,
+    no crossing and no distance (their edges lie on vertex 0)."""
+    v = np.zeros((vert_bucket, 3), np.float32)
+    v[: verts.shape[0]] = verts
+    v[verts.shape[0]:] = verts[0]
+    f = np.zeros((face_bucket, 3), np.int32)
+    f[: faces.shape[0]] = faces
+    return v, f

@@ -90,13 +90,18 @@ def compute_v2d_loss_hand(verts_hand, camintr, ref_verts2d, image_size: int,
 
 
 def compute_sil_loss_object(verts_obj, faces_obj, camintr_rois, ref_mask,
-                            keep_mask, settings: RasterSettings):
+                            keep_mask, settings: RasterSettings,
+                            rendered=None):
     """Occlusion-aware silhouette L2 in the ROI.
 
     `edge_budget_excess` > 0 at any iteration means contour edges were
     dropped by the per-tile budget, which corrupts the winding region.
+    rendered: rasterize_soft's output for these inputs, where the caller
+    rendered them already (render_terms).
     """
-    out = rasterize_soft(verts_obj, faces_obj, camintr_rois, settings)
+    out = rendered
+    if out is None:
+        out = rasterize_soft(verts_obj, faces_obj, camintr_rois, settings)
     image = keep_mask * out["sil"]
     l_m = ((image - ref_mask) ** 2).sum() / keep_mask.sum()
     loss = l_m / verts_obj.shape[0]
@@ -110,10 +115,11 @@ def compute_sil_loss_object(verts_obj, faces_obj, camintr_rois, ref_mask,
 
 
 def compute_sil_loss_hand(verts_hand, faces_hand, camintr_rois, ref_mask,
-                          keep_mask, settings: RasterSettings):
-    """Per-hand silhouette L2, batched."""
-    rend = rasterize_soft(verts_hand, faces_hand, camintr_rois,
-                          settings)["sil"]
+                          keep_mask, settings: RasterSettings, rendered=None):
+    """Per-hand silhouette L2, batched; `rendered` as for the object."""
+    rend = (rendered if rendered is not None
+            else rasterize_soft(verts_hand, faces_hand, camintr_rois,
+                                settings)["sil"])
     image = keep_mask * rend
     per = (((image - ref_mask) ** 2).sum(dim=(1, 2))
            / keep_mask.sum(dim=(1, 2)))
@@ -236,13 +242,15 @@ def compute_contact_loss_term(verts_hand_detscale, verts_obj, faces_obj,
 def compute_interaction_sdf_terms(verts_hand_detscale, verts_obj, faces_obj,
                                   closed_hand_faces, hand_nb: int,
                                   with_collision: bool, with_contact: bool,
-                                  sdf_mode: str = "grid", sdf_grid: int = 32):
+                                  sdf_mode: str = "grid", sdf_grid: int = 32,
+                                  grids=None):
     """Collision and contact with the SDF work done once per step.
 
     sdf_mode "grid": the reference's semantics, each mesh voxelized into a
     G^3 interior grid and sampled trilinearly (the voxelizer kernel runs
-    here). "direct": the exact interior distance at the sampled vertices
-    only (interior_sdf_at_points).
+    here, unless the caller passes the step's `grids`). "direct": the exact
+    interior distance at the sampled vertices only
+    (interior_sdf_at_points).
     """
     hand_verts = [verts_hand_detscale[i::hand_nb] for i in range(hand_nb)]
     obj_det = verts_obj.detach()
@@ -261,9 +269,10 @@ def compute_interaction_sdf_terms(verts_hand_detscale, verts_obj, faces_obj,
                                                           faces_obj)
                            for hv in hand_verts]
     elif sdf_mode == "grid":
-        grids, _ = build_interaction_grids(
-            verts_hand_detscale, verts_obj, faces_obj, closed_hand_faces,
-            hand_nb, sdf_grid)
+        if grids is None:
+            grids, _ = build_interaction_grids(
+                verts_hand_detscale, verts_obj, faces_obj, closed_hand_faces,
+                hand_nb, sdf_grid)
         if with_collision:
             out.update(compute_collision_loss(
                 verts_hand_detscale, obj_det, faces_obj, closed_hand_faces,
@@ -318,62 +327,113 @@ def compute_ordinal_depth_loss(masks, silhouettes, depths):
     return {"loss_depth": loss / torch.clamp(num_pairs, min=1.0)}
 
 
-def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
-                       cfg: M.HomanConfig, lw: Dict[str, float],
-                       closed_hand_faces=None,
-                       roi_settings: RasterSettings | None = None,
-                       full_settings: RasterSettings | None = None,
-                       ) -> Tuple[Dict, Dict]:
-    """Gated loss and metric dicts (homan_tpu/fit/losses.py:357), in the
-    JAX package's insertion order so weighted sums add up alike.
+def _sdf_plan(cfg: M.HomanConfig, lw: Dict[str, float]):
+    """(tritri collision, SDF terms run, grids built) for these weights."""
+    with_sdf_terms = lw["lw_collision"] > 0 or lw["lw_contact"] > 0
+    tritri = cfg.collision_mode == "tritri" and lw["lw_collision"] > 0
+    # With tritri on, the SDF terms run for contact alone, and not at all
+    # (no voxelizer launch) when lw_contact is 0.
+    sdf_terms = with_sdf_terms and (lw["lw_contact"] > 0 or not tritri)
+    return tritri, sdf_terms, sdf_terms and cfg.sdf_mode == "grid"
 
-    closed_hand_faces: (F, 3) hand topology of the collision and contact
-    terms. full_settings: the full-image depth renders of the ordinal-depth
-    term; None reproduces the JAX default,
-    RasterSettings(image_size=cfg.image_size).
+
+def render_terms(state: M.HomanState, consts: M.HomanConsts,
+                 cfg: M.HomanConfig, lw: Dict[str, float],
+                 closed_hand_faces=None,
+                 roi_settings: RasterSettings | None = None,
+                 full_settings: RasterSettings | None = None) -> Dict:
+    """The per-frame work of a step: the posed vertices (MANO), the
+    silhouette and depth renders and the SDF grids, so every kernel launch
+    of the step. Each frame's outputs depend on its own rows of state and
+    consts and on the global scales only, so a frame-sharded fit
+    (parallel/frames.py) runs this per shard and concatenates.
+
+    Returns a dict of frame-major tensors (and dicts and lists of them):
+    verts_object, verts_hand, verts_hand_det, and as the weights need
+    verts_hand_detscale, grids, sil_object (rasterize_soft's output),
+    sil_hand, depth (rasterize_depth's outputs, object then each hand).
     """
+    if roi_settings is None:
+        roi_settings = RasterSettings(image_size=cfg.rend_size)
+    with_sdf_terms = lw["lw_collision"] > 0 or lw["lw_contact"] > 0
+    if with_sdf_terms and closed_hand_faces is None:
+        raise ValueError("collision and contact need closed_hand_faces")
+    _, _, with_grids = _sdf_plan(cfg, lw)
+    out = {}
+    out["verts_object"], _ = M.get_verts_object(state, consts)
+    out["verts_hand"], out["verts_hand_det"] = M.get_verts_hand(
+        state, consts, cfg)
+    # The scale-detached variant needs a second MANO pass; only the
+    # collision and contact terms read it (homan/homan.py:432).
+    if with_sdf_terms:
+        out["verts_hand_detscale"], _ = M.get_verts_hand(
+            state, consts, cfg, detach_scale=True)
+    if with_grids:
+        out["grids"], _ = build_interaction_grids(
+            out["verts_hand_detscale"], out["verts_object"],
+            _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
+            cfg.hand_nb)
+    if lw["lw_sil_obj"] > 0:
+        out["sil_object"] = rasterize_soft(
+            out["verts_object"], consts.faces_object,
+            consts.camintr_rois_object, roi_settings)
+    if lw["lw_sil_hand"] > 0:
+        out["sil_hand"] = rasterize_soft(
+            out["verts_hand"], consts.faces_hand, consts.camintr_rois_hand,
+            roi_settings)["sil"]
+    if lw["lw_depth"] > 0:
+        if full_settings is None:
+            full_settings = RasterSettings(image_size=cfg.image_size)
+        # Hard z-buffer depth and coverage of the object and each hand at
+        # full image size; the loss never reads soft silhouette values.
+        out["depth"] = [rasterize_depth(out["verts_object"],
+                                        consts.faces_object, consts.camintr,
+                                        full_settings)]
+        for h in range(cfg.hand_nb):
+            out["depth"].append(rasterize_depth(
+                out["verts_hand"][h::cfg.hand_nb], consts.faces_hand,
+                consts.camintr, full_settings))
+    return out
+
+
+def reduce_terms(rendered: Dict, state: M.HomanState, consts: M.HomanConsts,
+                 cfg: M.HomanConfig, lw: Dict[str, float],
+                 closed_hand_faces=None,
+                 roi_settings: RasterSettings | None = None
+                 ) -> Tuple[Dict, Dict]:
+    """The gated loss and metric dicts from a step's render_terms, in the
+    JAX package's insertion order so weighted sums add up alike. Reads
+    state only for the PCA and scale priors."""
     if roi_settings is None:
         roi_settings = RasterSettings(image_size=cfg.rend_size)
     loss_dict: Dict[str, torch.Tensor] = {}
     metric_dict: Dict[str, torch.Tensor] = {}
-    with_sdf_terms = lw["lw_collision"] > 0 or lw["lw_contact"] > 0
-
-    verts_object, _ = M.get_verts_object(state, consts)
-    verts_hand, verts_hand_det = M.get_verts_hand(state, consts, cfg)
-    # The scale-detached variant needs a second MANO pass; only the
-    # collision and contact terms read it (homan/homan.py:432).
-    if with_sdf_terms:
-        verts_hand_detscale, _ = M.get_verts_hand(state, consts, cfg,
-                                                  detach_scale=True)
+    tritri, sdf_terms, _ = _sdf_plan(cfg, lw)
+    verts_object = rendered["verts_object"]
+    verts_hand = rendered["verts_hand"]
 
     if lw["lw_pca"] > 0:
         loss_dict.update(compute_pca_loss(state.mano_pca_pose))
     if lw["lw_smooth_hand"] > 0 or lw["lw_smooth_obj"] > 0:
         loss_dict.update(compute_smooth_loss(verts_hand, verts_object,
                                              cfg.hand_nb))
-    if with_sdf_terms:
-        if closed_hand_faces is None:
-            raise ValueError("collision and contact need closed_hand_faces")
-        tritri = cfg.collision_mode == "tritri" and lw["lw_collision"] > 0
-        if tritri:
-            # The BVH branch (homan/lossutils.py:66-104): intersecting
-            # triangle pairs, point-to-plane penetration. The object is
-            # detached, so collision only pushes the hand (the reference's
-            # verts_object.detach(), homan/homan.py:445-447).
-            loss_dict["loss_collision"] = \
-                intersect_lib.compute_collision_loss_tritri(
-                    verts_hand_detscale, _faces_of(closed_hand_faces),
-                    verts_object.detach(), _faces_of(consts.faces_object),
-                    cfg.hand_nb)
-        # With tritri on, the SDF terms run for contact alone, and not at
-        # all (no voxelizer launch) when lw_contact is 0.
-        if lw["lw_contact"] > 0 or not tritri:
-            loss_dict.update(compute_interaction_sdf_terms(
-                verts_hand_detscale, verts_object,
-                _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
-                cfg.hand_nb, with_collision=lw["lw_collision"] > 0
-                and not tritri, with_contact=lw["lw_contact"] > 0,
-                sdf_mode=cfg.sdf_mode))
+    if tritri:
+        # The BVH branch (homan/lossutils.py:66-104): intersecting
+        # triangle pairs, point-to-plane penetration. The object is
+        # detached, so collision only pushes the hand (the reference's
+        # verts_object.detach(), homan/homan.py:445-447).
+        loss_dict["loss_collision"] = \
+            intersect_lib.compute_collision_loss_tritri(
+                rendered["verts_hand_detscale"],
+                _faces_of(closed_hand_faces), verts_object.detach(),
+                _faces_of(consts.faces_object), cfg.hand_nb)
+    if sdf_terms:
+        loss_dict.update(compute_interaction_sdf_terms(
+            rendered["verts_hand_detscale"], verts_object,
+            _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
+            cfg.hand_nb, with_collision=lw["lw_collision"] > 0
+            and not tritri, with_contact=lw["lw_contact"] > 0,
+            sdf_mode=cfg.sdf_mode, grids=rendered.get("grids")))
     if lw["lw_v2d_hand"] > 0:
         l, m = compute_v2d_loss_hand(verts_hand, consts.camintr,
                                      consts.ref_verts2d_hand, cfg.image_size,
@@ -383,18 +443,20 @@ def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
     if lw["lw_sil_obj"] > 0:
         l, m = compute_sil_loss_object(
             verts_object, consts.faces_object, consts.camintr_rois_object,
-            consts.ref_mask_object, consts.keep_mask_object, roi_settings)
+            consts.ref_mask_object, consts.keep_mask_object, roi_settings,
+            rendered=rendered["sil_object"])
         loss_dict.update(l)
         metric_dict.update(m)
     if lw["lw_sil_hand"] > 0:
         loss_dict.update(compute_sil_loss_hand(
             verts_hand, consts.faces_hand, consts.camintr_rois_hand,
-            consts.ref_mask_hand, consts.keep_mask_hand, roi_settings))
+            consts.ref_mask_hand, consts.keep_mask_hand, roi_settings,
+            rendered=rendered["sil_hand"]))
     if lw["lw_inter"] > 0:
         obj_for_inter = (verts_object if cfg.optimize_object_scale
                          else verts_object.detach())
-        l, m = compute_interaction_loss(verts_hand_det, obj_for_inter,
-                                        consts.camintr, cfg)
+        l, m = compute_interaction_loss(rendered["verts_hand_det"],
+                                        obj_for_inter, consts.camintr, cfg)
         loss_dict.update(l)
         metric_dict.update(m)
     if lw["lw_scale_obj"] > 0:
@@ -404,16 +466,7 @@ def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
         loss_dict["loss_scale_hand"] = compute_intrinsic_scale_prior(
             state.int_scales_hand)
     if lw["lw_depth"] > 0:
-        if full_settings is None:
-            full_settings = RasterSettings(image_size=cfg.image_size)
-        # Hard z-buffer depth and coverage of the object and each hand at
-        # full image size; the loss never reads soft silhouette values.
-        renders = [rasterize_depth(verts_object, consts.faces_object,
-                                   consts.camintr, full_settings)]
-        for h in range(cfg.hand_nb):
-            renders.append(rasterize_depth(verts_hand[h::cfg.hand_nb],
-                                           consts.faces_hand, consts.camintr,
-                                           full_settings))
+        renders = rendered["depth"]
         all_masks = torch.stack(
             [consts.masks_object]
             + [consts.masks_hand[h::cfg.hand_nb] for h in range(cfg.hand_nb)],
@@ -422,6 +475,26 @@ def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
             all_masks, [r["covered"] for r in renders],
             [r["depth"] for r in renders]))
     return loss_dict, metric_dict
+
+
+def compute_all_losses(state: M.HomanState, consts: M.HomanConsts,
+                       cfg: M.HomanConfig, lw: Dict[str, float],
+                       closed_hand_faces=None,
+                       roi_settings: RasterSettings | None = None,
+                       full_settings: RasterSettings | None = None,
+                       ) -> Tuple[Dict, Dict]:
+    """Gated loss and metric dicts (homan_tpu/fit/losses.py:357):
+    render_terms then reduce_terms.
+
+    closed_hand_faces: (F, 3) hand topology of the collision and contact
+    terms. full_settings: the full-image depth renders of the ordinal-depth
+    term; None reproduces the JAX default,
+    RasterSettings(image_size=cfg.image_size).
+    """
+    rendered = render_terms(state, consts, cfg, lw, closed_hand_faces,
+                            roi_settings, full_settings)
+    return reduce_terms(rendered, state, consts, cfg, lw, closed_hand_faces,
+                        roi_settings)
 
 
 def weighted_sum(loss_dict: Dict[str, torch.Tensor],

@@ -158,3 +158,22 @@ def compute_contact_loss(hand_verts, hand_faces, obj_verts, obj_faces,
         "min_dists": mins21,
     }
     return missed_loss, penetr_loss, contact_info, metrics
+
+
+def thresh_contact_iou(gt_dists: torch.Tensor, pred_dists: torch.Tensor,
+                       threshs=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10)):
+    """Contact IoU per sample averaged over thresholds, and its AUC over
+    the thresholds (contactloss.py:22-47). gt_dists, pred_dists (B, N)."""
+    all_ious = []
+    for thresh in threshs:
+        gt_c = gt_dists <= thresh
+        pr_c = pred_dists <= thresh
+        inter = (gt_c & pr_c).sum(dim=1).to(torch.float32)
+        union = (gt_c | pr_c).sum(dim=1).to(torch.float32)
+        all_ious.append(torch.where(union > 0,
+                                    inter / torch.clamp(union, min=1),
+                                    torch.zeros_like(inter)))
+    ious = torch.stack(all_ious)  # (T, B)
+    x = torch.as_tensor(threshs, dtype=torch.float32, device=ious.device)
+    auc = torch.trapezoid(ious, x=x, dim=0).mean()
+    return ious.mean(dim=1), auc

@@ -18,19 +18,26 @@
 // (INSIDE point, triangle); the distance dominates, and the kernel is
 // bound by fp32 instruction throughput on the inside points.
 //
-// Design. One block of 256 threads per 512 consecutive grid points
-// (512 / G whole columns of one frame), grid (G^3 / 512, B).
-//  1. Parity per column. Each warp owns 512 / (8 G) columns. Lane j tests
+// Design. One block of 256 threads per 512 consecutive grid points of one
+// frame, grid (G^3 / 512, B): 512 / G whole columns at G <= 64, a segment
+// of one column at G >= 128 (G 16 to 1,024, the JAX launcher's range).
+//  1. Parity per column. Each warp owns the 64 consecutive points
+//     warp * 64 .. + 63 of its block: 64 / G whole columns at G <= 64,
+//     the z cells z0 .. z0 + 63 of one column at G >= 128 (its warps
+//     then test the same triangles against the same column: the crossing
+//     test is ~1/16 of the distance work at a tenth inside, so the
+//     repeat costs a few per cent and keeps every count in registers, two
+//     a lane, at any G). Lane j tests
 //     triangles j, j + 32, ... (read from global memory, L1-resident)
 //     against each of its columns: the three xy edge functions, inside_xy,
 //     area2 and its |.| > 1e-12 test and z_tri, in the plain version's
 //     expressions and order (built with -fmad=false), so the inside sets
 //     agree bit for bit. __ballot_sync gives the lanes that hit; for each
 //     set bit __shfl_sync broadcasts that lane's z_tri and every lane adds
-//     z_tri > pz for the z cells it owns (iz = lane + 32 k). A count is an
-//     integer, so the order does not matter, and no hit list can overflow.
-//     At G 16 lanes 16-31 own no cell (they still test triangles); at
-//     G 64 each lane owns two cells of one column.
+//     z_tri > pz for the z cells it owns (iz = z0 + lane + 32 k). A count
+//     is an integer, so the order does not matter, and no hit list can
+//     overflow. At G 16 lanes 16-31 own no cell (they still test
+//     triangles); at G >= 64 each lane owns two cells of one column.
 //  2. Compaction. Odd counts are the inside points: each warp appends its
 //     inside points to a shared list (ballot, popc prefix, one shared
 //     atomicAdd per warp) and writes 0 for its outside points. A block
@@ -207,9 +214,11 @@ template <int G>
 __global__ void __launch_bounds__(kThreads)
 voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
                 int fpad, float big) {
-  constexpr int kCols = kPoints / G;          // columns per block
-  constexpr int kColsPerWarp = kCols / kWarps;
-  constexpr int kCells = G >= 32 ? G / 32 : 1;  // z cells per lane
+  constexpr int kWarpPoints = kPoints / kWarps;  // 64 points per warp
+  // Columns per warp, and the z cells of a column a warp owns.
+  constexpr int kColsPerWarp = G <= kWarpPoints ? kWarpPoints / G : 1;
+  constexpr int kSpan = G <= kWarpPoints ? G : kWarpPoints;
+  constexpr int kCells = kSpan >= 32 ? kSpan / 32 : 1;  // z cells per lane
   __shared__ Tri s_tri[kTile];
   __shared__ int s_list[kPoints];
   __shared__ int s_wcount[kWarps];
@@ -223,12 +232,15 @@ voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
   if (threadIdx.x == 0) s_n = 0;
   __syncthreads();
 
-  // 1. Crossing parity per column.
+  // 1. Crossing parity per column. The warp's first point, in the frame's
+  // linear order, starts its first column (G <= 64) or its segment.
+  const int first = blockIdx.x * kPoints + warp * kWarpPoints;
+  const int z0 = first % G;  // 0 at G <= 64
   float cpx[kColsPerWarp], cpy[kColsPerWarp];
   int count[kColsPerWarp][kCells];
 #pragma unroll
   for (int c = 0; c < kColsPerWarp; ++c) {
-    const int col = blockIdx.x * kCols + warp * kColsPerWarp + c;
+    const int col = first / G + c;
     cpx[c] = cell(col / G, fg);
     cpy[c] = cell(col % G, fg);
 #pragma unroll
@@ -236,7 +248,7 @@ voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
   }
   float pz[kCells];
 #pragma unroll
-  for (int k = 0; k < kCells; ++k) pz[k] = cell(lane + 32 * k, fg);
+  for (int k = 0; k < kCells; ++k) pz[k] = cell(z0 + lane + 32 * k, fg);
 
   for (int f0 = 0; f0 < fpad; f0 += 32) {
     const int f = f0 + lane;  // fpad is a multiple of 128
@@ -282,9 +294,9 @@ voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
   for (int c = 0; c < kColsPerWarp; ++c) {
 #pragma unroll
     for (int k = 0; k < kCells; ++k) {
-      const int iz = lane + 32 * k;
-      const bool own = iz < G;
-      const int local = (warp * kColsPerWarp + c) * G + iz;
+      const int iz = lane + 32 * k;  // within the column's segment
+      const bool own = iz < kSpan;
+      const int local = warp * kWarpPoints + c * G + iz;
       const bool inside = own && (count[c][k] & 1);
       const unsigned m = __ballot_sync(0xffffffffu, inside);
       int base = 0;
@@ -311,10 +323,11 @@ voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
     float px[2], py[2], pz2[2], d2min[2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const int col = blockIdx.x * kCols + idx[q] / G;
+      const int point = blockIdx.x * kPoints + idx[q];
+      const int col = point / G;
       px[q] = cell(col / G, fg);
       py[q] = cell(col % G, fg);
-      pz2[q] = cell(idx[q] % G, fg);
+      pz2[q] = cell(point % G, fg);
       d2min[q] = big;
     }
     sweep<2>(pack, fpad, px, py, pz2, d2min, 1, 0, true, s_tri, s_wcount);
@@ -327,10 +340,11 @@ voxelize_kernel(const float* __restrict__ tri_pack, float* __restrict__ phi,
     const int split = t % S;
     const bool active = slot < n;
     const int idx = s_list[active ? slot : 0];
-    const int col = blockIdx.x * kCols + idx / G;
+    const int point = blockIdx.x * kPoints + idx;
+    const int col = point / G;
     float px[1] = {cell(col / G, fg)};
     float py[1] = {cell(col % G, fg)};
-    float pz1[1] = {cell(idx % G, fg)};
+    float pz1[1] = {cell(point % G, fg)};
     float d2min[1] = {big};
     sweep<1>(pack, fpad, px, py, pz1, d2min, S, split, active, s_tri,
              s_wcount);
@@ -354,7 +368,7 @@ int launch(const float* tri_pack, float* phi, int B, int fpad, float big,
 
 // C interface, loaded with ctypes: launches on `stream` and returns
 // cudaGetLastError() (0 = launched), or -1 for a grid size the kernel does
-// not take (G must be 16, 32 or 64).
+// not take (G must be a power of two from 16 to 1,024).
 extern "C" int voxelize(const float* tri_pack, float* phi, int B, int G,
                         int fpad, float big, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -362,6 +376,10 @@ extern "C" int voxelize(const float* tri_pack, float* phi, int B, int G,
     case 16: return launch<16>(tri_pack, phi, B, fpad, big, s);
     case 32: return launch<32>(tri_pack, phi, B, fpad, big, s);
     case 64: return launch<64>(tri_pack, phi, B, fpad, big, s);
+    case 128: return launch<128>(tri_pack, phi, B, fpad, big, s);
+    case 256: return launch<256>(tri_pack, phi, B, fpad, big, s);
+    case 512: return launch<512>(tri_pack, phi, B, fpad, big, s);
+    case 1024: return launch<1024>(tri_pack, phi, B, fpad, big, s);
     default: return -1;
   }
 }

@@ -12,8 +12,12 @@ Layout (as the TPU kernel's):
   phi (B, G, G, G): the interior distance at each cell centre, 0 outside.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel (or raises). `voxelize_launches` counts kernel launches
-only. Forward only: the grids carry no gradient.
+launches the kernel (or raises). Both refuse a grid size outside `GRIDS`
+with ValueError, as the JAX launcher asserts. `voxelize_launches` counts
+kernel launches only. Forward only: the grids carry no gradient.
+
+Memory: phi holds 4 G^3 bytes a mesh, 4 GiB at G 1,024, so an 80 GB card
+takes B 1-4 there with room for the rest of a step.
 """
 from __future__ import annotations
 
@@ -22,14 +26,18 @@ import ctypes
 import torch
 
 from homan_tpu_torch.interactions import sdf as sdf_lib
-from homan_tpu_torch.render.shade import _require_cuda
+from homan_tpu_torch.render.shade import (_require_cuda, fold_batched,
+                                          unfold_batched)
 
 # Launch count of the CUDA kernel (the plain version does not count).
 voxelize_launches = 0
 
 TF = 128  # triangles per staging tile; Fpad is a multiple of it
 BIG = 1e9  # distance^2 of an invalid (padding) slot
-GRIDS = (16, 32, 64)  # the grid sizes the kernel takes (the JAX package's)
+# The grid sizes the kernel takes: those the JAX launcher takes (G^3 a
+# multiple of its 1,024-point block, 1,024 a multiple of G), the powers of
+# two from 16 to 1,024 (homan_tpu/interactions/pallas_sdf.py:190-191).
+GRIDS = (16, 32, 64, 128, 256, 512, 1024)
 # The kernel's fp32 arithmetic, compare and select operations
 # (csrc/voxelize.cu), an FMA counted as two:
 # per (xy column, valid triangle), the crossing test: validity 1, three
@@ -54,6 +62,14 @@ def work_ops(n_faces: int, n_inside: int, grid_size: int, batch: int):
     inside points over all frames."""
     return (CROSS_OPS_PER_COLUMN_FACE * batch * grid_size ** 2 * n_faces
             + DIST_OPS_PER_POINT_FACE * n_inside * n_faces)
+
+
+def check_grid(grid_size: int) -> int:
+    """`grid_size`, or ValueError where it is not one of GRIDS."""
+    if grid_size not in GRIDS:
+        raise ValueError(f"the voxelizer takes grid sizes {GRIDS}, "
+                         f"got {grid_size}")
+    return grid_size
 
 
 def pack_triangles(verts, faces):
@@ -95,10 +111,7 @@ def voxelize_pack(tri_pack, grid_size: int = 32):
                          f"multiple of {TF}, got {tuple(tri_pack.shape)}")
     if tri_pack.dtype != torch.float32 or not tri_pack.is_contiguous():
         raise ValueError("tri_pack must be contiguous float32")
-    g = grid_size
-    if g not in GRIDS:
-        raise ValueError(f"the voxelizer kernel takes grid sizes {GRIDS}, "
-                         f"got {g}")
+    g = check_grid(grid_size)
     phi = torch.empty((B, g, g, g), dtype=torch.float32,
                       device=tri_pack.device)
     if B == 0:
@@ -114,11 +127,36 @@ def voxelize_pack(tri_pack, grid_size: int = 32):
     return phi
 
 
+class _VoxelizePack(torch.autograd.Function):
+    """voxelize_pack as an op torch.func.vmap can batch: the vmapped clip
+    dim folds into the frame dim, one launch for every clip. No gradient."""
+
+    @staticmethod
+    def forward(tri_pack, grid_size):
+        return voxelize_pack(tri_pack, grid_size)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, tri_pack, grid_size):
+        n, (tri_pack,) = fold_batched(in_dims[:1], tri_pack)
+        (phi,), dims = unfold_batched(n, (_VoxelizePack.apply(
+            tri_pack.contiguous(), grid_size),))
+        return phi, dims[0]
+
+
 def voxelize(verts, faces, grid_size: int = 32):
     """Interior-clamped SDF (B, G, G, G) of normalized verts (B, V, 3);
     the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    check_grid(grid_size)
     if verts.device.type == "cpu":
         return sdf_lib.voxelize_interior_sdf(verts, faces, grid_size)
     with torch.no_grad():
         tri_pack = pack_triangles(verts.detach().to(torch.float32), faces)
-        return voxelize_pack(tri_pack, grid_size)
+        return _VoxelizePack.apply(tri_pack, grid_size)

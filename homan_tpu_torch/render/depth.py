@@ -36,7 +36,9 @@ from typing import NamedTuple
 
 import torch
 
-from homan_tpu_torch.render.shade import _check, _pixel_coords, _require_cuda
+from homan_tpu_torch.render.shade import (_check, _pixel_coords, _require_cuda,
+                                          fold_batched, needs_grad,
+                                          unfold_batched)
 
 # Launch counts of the CUDA kernels (the plain versions do not count).
 depth_fwd_launches = 0
@@ -303,24 +305,34 @@ def depth_bwd(depth, amax, gcot, static: DepthStatic):
 
 
 class _DepthTiles(torch.autograd.Function):
-    """depth = zbuffer(face_pack) with the argmax-slot backward."""
+    """depth = zbuffer(face_pack) with the argmax-slot backward; under
+    torch.func.vmap one launch covers every clip (shade.fold_batched)."""
 
     @staticmethod
-    def forward(ctx, face_pack, static):
-        depth, amax = depth_fwd(face_pack, static)
-        ctx.static = static
-        ctx.save_for_backward(depth, amax)
-        return depth
+    def forward(face_pack, static):
+        return depth_fwd(face_pack, static)
 
     @staticmethod
-    def backward(ctx, gcot):
+    def setup_context(ctx, inputs, output):
+        ctx.static = inputs[1]
+        ctx.save_for_backward(*output)
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, gcot, _):
         depth, amax = ctx.saved_tensors
         return depth_bwd(depth, amax, gcot.contiguous(), ctx.static), None
+
+    @staticmethod
+    def vmap(info, in_dims, face_pack, static):
+        n, (face_pack,) = fold_batched(in_dims[:1], face_pack)
+        return unfold_batched(n, _DepthTiles.apply(face_pack.contiguous(),
+                                                   static))
 
 
 def depth_tiles(face_pack, static: DepthStatic):
     """(B, T, tp, tp) hard z-buffer depth tiles, 0 where uncovered."""
     face_pack = face_pack.contiguous()
-    if torch.is_grad_enabled() and face_pack.requires_grad:
-        return _DepthTiles.apply(face_pack, static)
+    if needs_grad(face_pack):
+        return _DepthTiles.apply(face_pack, static)[0]
     return depth_fwd(face_pack, static)[0]

@@ -37,7 +37,8 @@ import torch
 
 from homan_tpu_torch.render.depth import DepthStatic, depth_tiles
 from homan_tpu_torch.render.shade import (FWD_MAX_KE, ShadeStatic,
-                                          shade_tiles)
+                                          fold_batched, shade_tiles,
+                                          unfold_batched)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,13 +205,16 @@ class _BinnedRows(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, rows, idx, hit, slot_of):
+    def forward(rows, idx, hit, slot_of):
         B, _, C = rows.shape
-        ctx.save_for_backward(slot_of)
         out = torch.gather(rows, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
         out = out.reshape(idx.shape + (C,))
         return torch.where(hit[..., None], out,
                            torch.zeros((), device=out.device))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[3])
 
     @staticmethod
     def backward(ctx, grad):
@@ -220,6 +224,12 @@ class _BinnedRows(torch.autograd.Function):
         per_tile = torch.gather(padded, 2,
                                 slot_of[..., None].expand(-1, -1, -1, C))
         return per_tile.sum(1), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, rows, idx, hit, slot_of):
+        n, args = fold_batched(in_dims, rows, idx, hit, slot_of)
+        (out,), dims = unfold_batched(n, (_BinnedRows.apply(*args),))
+        return out, dims[0]
 
 
 def _contour_data(uv, z, topo: MeshTopology, s: RasterSettings):

@@ -386,21 +386,63 @@ def shade_bwd(residuals, gcot, static: ShadeStatic):
     return gseg
 
 
+def needs_grad(x) -> bool:
+    """Whether a kernel's input carries a gradient: grad mode on and x
+    requiring it, also under torch.func.vmap, where a batched tensor
+    reports requires_grad False and the physical tensor beneath knows."""
+    if not torch.is_grad_enabled():
+        return False
+    from torch._C import _functorch
+    while _functorch.is_batchedtensor(x):
+        x = _functorch.get_unwrapped(x)
+    return x.requires_grad
+
+
+def fold_batched(in_dims, *tensors):
+    """The vmap rule's inputs with the vmapped dim folded into the leading
+    batch dim: (C, B, ...) -> (C B, ...); an input without that dim
+    (in_dim None) is repeated. Returns (C, folded tensors)."""
+    n = next(t.shape[d] for t, d in zip(tensors, in_dims) if d is not None)
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = (t.movedim(d, 0) if d is not None
+             else t[None].expand((n,) + tuple(t.shape)))
+        out.append(t.reshape((-1,) + tuple(t.shape[2:])))
+    return n, out
+
+
+def unfold_batched(n, outputs):
+    """(C B, ...) -> (C, B, ...) for each output, and their out_dims."""
+    outs = tuple(o.reshape((n, -1) + tuple(o.shape[1:])) for o in outputs)
+    return outs, (0,) * len(outs)
+
+
 class _ShadeTiles(torch.autograd.Function):
-    """sil = shade(seg_pack, anchors) with the analytic argmin backward."""
+    """sil = shade(seg_pack, anchors) with the analytic argmin backward.
+
+    Under torch.func.vmap (parallel/clips.py's batched clips) the clip dim
+    is folded into the frame dim, so one launch covers every clip."""
 
     @staticmethod
-    def forward(ctx, seg_pack, anchors, static):
-        sil, amin, rx, ry, tc = shade_fwd(seg_pack, anchors, static,
-                                          want_residuals=True)
-        ctx.static = static
-        ctx.save_for_backward(sil, amin, rx, ry, tc)
-        return sil
+    def forward(seg_pack, anchors, static):
+        return shade_fwd(seg_pack, anchors, static, want_residuals=True)
 
     @staticmethod
-    def backward(ctx, gcot):
+    def setup_context(ctx, inputs, output):
+        ctx.static = inputs[2]
+        ctx.save_for_backward(*output)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, gcot, *_):
         gseg = shade_bwd(ctx.saved_tensors, gcot.contiguous(), ctx.static)
         return gseg, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, seg_pack, anchors, static):
+        n, (seg_pack, anchors) = fold_batched(in_dims[:2], seg_pack, anchors)
+        return unfold_batched(n, _ShadeTiles.apply(
+            seg_pack.contiguous(), anchors.contiguous(), static))
 
 
 def shade_tiles(seg_pack, anchors, static: ShadeStatic):
@@ -411,6 +453,6 @@ def shade_tiles(seg_pack, anchors, static: ShadeStatic):
     """
     seg_pack = seg_pack.contiguous()
     anchors = anchors.contiguous()
-    if torch.is_grad_enabled() and seg_pack.requires_grad:
-        return _ShadeTiles.apply(seg_pack, anchors, static)
+    if needs_grad(seg_pack):
+        return _ShadeTiles.apply(seg_pack, anchors, static)[0]
     return shade_fwd(seg_pack, anchors, static, want_residuals=False)[0]

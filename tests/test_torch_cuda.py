@@ -471,3 +471,123 @@ def test_render_scene_on_card_matches_cpu(cuda):
     for a, b in zip(frames["cpu"], frames["cuda"]):
         d = np.abs(a.astype(int) - b.astype(int))
         assert (d > 1).any(-1).sum() <= 0.001 * 128 * 128
+
+
+@pytest.mark.parametrize("grid", [128, 256])
+def test_voxelizer_kernel_matches_plain_at_large_grids(cuda, grid):
+    """G 128 and 256 (a block then holds a segment of one column) against
+    the plain version on an 80-face mesh: the same inside set, phi within
+    1e-5, deterministic."""
+    v, f = bumpy_potato(1, 0.6, seed=0)
+    local = torch.from_numpy(v)[None].to(cuda)
+    faces = torch.from_numpy(np.asarray(f, np.int64)).to(cuda)
+    n0 = tvox.voxelize_launches
+    k = tvox.voxelize(local, faces, grid)
+    assert tvox.voxelize_launches == n0 + 1
+    p = tsdf.voxelize_interior_sdf(local, faces, grid)
+    assert bool((p > 0).any())
+    assert torch.equal(k > 0, p > 0)
+    assert (k - p).abs().max().item() <= 1e-5
+    assert torch.equal(k, tvox.voxelize(local, faces, grid))
+
+
+@pytest.mark.parametrize("grid", [512, 1024])
+def test_voxelizer_kernel_matches_the_box_distance(cuda, grid):
+    """G 512 and 1,024 on the 12-face box against its analytic interior
+    distance (the plain version would take 10^10 pairs)."""
+    from torch_port_common import BOX_SHIFT, shifted_box
+    v, f = shifted_box()
+    phi = tvox.voxelize(torch.from_numpy(v)[None].to(cuda),
+                        torch.from_numpy(np.asarray(f, np.int64)).to(cuda),
+                        grid)[0]
+    axis = -1.0 + (2.0 * torch.arange(grid, device=cuda,
+                                      dtype=torch.float64) + 1.0) / grid
+    d = [0.5 - (axis - c).abs() for c in BOX_SHIFT]
+    ref = torch.minimum(torch.minimum(d[0][:, None, None],
+                                      d[1][None, :, None]),
+                        d[2][None, None, :]).clamp(min=0)
+    assert torch.equal(phi > 0, ref > 0)
+    assert (phi.double() - ref).abs().max().item() <= 1e-5
+
+
+def test_pad_mesh_kernels_invariant(cuda):
+    """pad_mesh leaves the shade kernels' silhouette and the voxelizer's
+    phi as they were (tests/test_sharding.py:158,164: 1e-5 and 1e-6)."""
+    from homan_tpu_torch.core.meshes import pad_mesh
+    v, f = bumpy_potato(2, 0.3, seed=2)
+    vp, fp = pad_mesh(v, f, v.shape[0] + 37, f.shape[0] + 53)
+    K = torch.tensor([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]],
+                     device=cuda)
+    settings = tr.RasterSettings(image_size=64, tile_px=16,
+                                 edges_per_tile=384)
+    shift = torch.tensor([0, 0, 1.0], device=cuda)
+    n0 = shade.shade_fwd_launches
+    sil, sil_p = (tr.rasterize_soft(
+        torch.from_numpy(a).to(cuda)[None] + shift,
+        tr.MeshTopology.from_faces(b, device=cuda), K,
+        settings)["sil"] for a, b in ((v, f), (vp, fp)))
+    assert shade.shade_fwd_launches + shade.shade_fwd_only_launches > n0
+    assert (sil_p - sil).abs().max().item() <= 1e-5
+    phi, phi_p = (tvox.voxelize(torch.from_numpy(a).to(cuda)[None],
+                                torch.from_numpy(b).to(cuda), 32)
+                  for a, b in ((v, f), (vp, fp)))
+    assert bool((phi > 0).any())
+    assert (phi_p - phi).abs().max().item() <= 1e-6
+
+
+def _clip_scenes(device, n=3, frames=2):
+    from homan_tpu_torch.core.mano import ManoLayer
+    from homan_tpu_torch.frontend.gtsynth import make_synthetic_scene
+    layer = ManoLayer.synthetic(0, device=device)
+    obj = bumpy_potato(2, 0.08, seed=0)
+    return [make_synthetic_scene(np.eye(3, dtype=np.float32), seed=i,
+                                 frame_nb=frames, image_size=64,
+                                 rend_size=32, mano_layer=layer,
+                                 obj_mesh=obj, device=device)
+            for i in range(n)]
+
+
+def test_fit_clips_batched_launches_once_per_step(cuda):
+    """Three clips fit in one set of launches a step: the shade pair
+    launches once a step, not once a clip; each clip within 3e-3 of its
+    own card fit."""
+    from homan_tpu_torch.fit import joint
+    from homan_tpu_torch.parallel import clips as par
+    scenes = _clip_scenes(cuda)
+    states = par.stack_clips([s.init_state for s in scenes])
+    consts = par.stack_clips([s.consts for s in scenes])
+    n_fwd, n_bwd = shade.shade_fwd_launches, shade.shade_bwd_launches
+    final, hist = par.fit_clips_batched(
+        states, consts, scenes[0].cfg, num_iterations=4,
+        roi_settings=scenes[0].roi_settings, device=cuda)
+    assert (shade.shade_fwd_launches - n_fwd,
+            shade.shade_bwd_launches - n_bwd) == (4, 4)
+    assert hist["loss"].shape == (3, 4)
+    for i, s in enumerate(scenes):
+        single, h1 = joint.optimize_hand_object(
+            s.init_state, s.consts, s.cfg, num_iterations=4,
+            roi_settings=s.roi_settings, device=cuda)
+        for k in ("translations_object", "mano_pca_pose"):
+            a, b = getattr(final, k)[i], getattr(single, k)
+            assert (a - b).abs().max().item() <= 3e-3 * max(
+                b.abs().max().item(), 1e-6), k
+
+
+def test_fit_frames_sharded_on_card_matches_unsharded(cuda):
+    """Two entries of the one card: the split and the gather run, and the
+    fit agrees with the unsharded one within 3e-3."""
+    from homan_tpu_torch.fit import joint
+    from homan_tpu_torch.parallel import frames as fpar
+    s = _clip_scenes(cuda, n=1, frames=4)[0]
+    mesh = fpar.make_frame_mesh(devices=[cuda, cuda])
+    sharded, hs = fpar.fit_frames_sharded(s.init_state, s.consts, s.cfg,
+                                          mesh, num_iterations=4,
+                                          roi_settings=s.roi_settings)
+    single, h1 = joint.optimize_hand_object(
+        s.init_state, s.consts, s.cfg, num_iterations=4,
+        roi_settings=s.roi_settings, device=cuda)
+    assert torch.allclose(hs["loss"], h1["loss"], rtol=3e-3)
+    for k in ("translations_object", "translations_hand", "mano_pca_pose"):
+        a, b = getattr(sharded, k), getattr(single, k)
+        assert (a - b).abs().max().item() <= 3e-3 * max(
+            b.abs().max().item(), 1e-6), k

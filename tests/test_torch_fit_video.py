@@ -236,15 +236,30 @@ def test_only_missing_skips_and_resume_refits_from_the_checkpoint(runs):
     pytest.param(["--frames_sharded", "1"], "item 19", id="flag1-item 19"),
     pytest.param(["--collision_mode", "tritri"], "item 17",
                  id="flag2-item 17")])
-def test_unported_flags_raise_naming_their_item(flag, item):
-    """--frames_sharded 1 raises naming its item; --collision_mode tritri
-    (item 17) is ported and passes the check (it runs in
-    tests/test_torch_intersect.py)."""
+def test_unported_flags_raise_naming_their_item(flag, item, runs, caplog):
+    """Both flags once refused are ported; nothing raises any more.
+    --collision_mode tritri (item 17) runs in tests/test_torch_intersect.py.
+    --frames_sharded 1 (item 19) on one device logs the JAX driver's
+    warning and fits unsharded: the same joint state as the module's run."""
+    args = TF.get_args(ARGV + flag)
     if item == "item 17":
-        assert TF.refuse_unported(TF.get_args(ARGV + flag)) is None
+        assert args.collision_mode == "tritri"
         return
-    with pytest.raises(NotImplementedError, match=item):
-        TF.main(TF.get_args(ARGV + flag), device="cpu")
+    _, (_, state, _, _), _, tree = runs
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.chdir(tree)
+        inject_jax_rotations(mp)
+        with caplog.at_level("WARNING"):
+            TF.main(TF.get_args(ARGV + flag + ["--result_root", "sharded"]),
+                    device="cpu")
+    finally:
+        mp.undo()
+    assert "don't split over the available devices" in caplog.text
+    sharded = np.load(os.path.join(tree, "sharded", "samples", "00000000",
+                                   "joint_fit.npz"))
+    for k, v in state.items():
+        np.testing.assert_array_equal(sharded[k], v, err_msg=k)
 
 
 def test_flags_and_defaults_match_jax():

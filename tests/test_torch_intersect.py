@@ -280,7 +280,7 @@ def test_tritri_joint_fit_matches_jax():
 def test_fit_video_runs_tritri(tmp_path, monkeypatch):
     """fit_video --collision_mode tritri with the collision term on: the
     joint fit's history holds a finite loss_collision; --frames_sharded 1
-    still raises, naming its queue item."""
+    runs it unsharded on one device, with the same losses."""
     from homan_tpu_torch.cli import fit_video as TF
     from homan_tpu_torch.viz import render_viz
     from torch_port_common import ho3d_tree
@@ -301,5 +301,10 @@ def test_fit_video_runs_tritri(tmp_path, monkeypatch):
     assert len(losses["loss_collision"]) == 3
     assert np.isfinite(losses["loss_collision"]).all()
     assert "loss_contact" not in losses
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TF.main(TF.get_args(argv + ["--frames_sharded", "1"]), device="cpu")
+    TF.main(TF.get_args(argv + ["--frames_sharded", "1", "--result_root",
+                                "sharded"]), device="cpu")
+    with open("sharded/samples/00000000/results.pkl", "rb") as f:
+        sharded = pickle.load(f)["losses"]
+    assert sharded.keys() == losses.keys()
+    for k in losses:
+        np.testing.assert_array_equal(sharded[k], losses[k], err_msg=k)

@@ -192,6 +192,24 @@ print("LOADED", bad)
 """
 
 
+_PARALLEL_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from homan_tpu_torch import entry, utils_profiling
+from homan_tpu_torch.parallel import clips, frames, multihost
+
+torch.set_num_threads(2)
+entry.dryrun_multichip(2, device="cpu")
+assert multihost.host_sample_indices(4) == [0, 1, 2, 3]
+stats = utils_profiling.measure_duty_cycle(lambda: torch.ones(3) * 2)
+assert "wall_s" in stats
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "homan_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -242,6 +260,17 @@ def test_viz_eval_native_run_without_jax_or_image_libraries():
     matplotlib missing the writers still write files the user can open."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _VIZ_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_parallel_and_entry_run_without_jax_in_a_fresh_process():
+    """parallel/ (batched clips, frame sharding, multihost), entry.py and
+    the profiling helpers import no jax."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr

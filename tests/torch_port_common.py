@@ -329,3 +329,28 @@ def ho3d_clip(root, frame_nb=3, chunk_step=1):
     return (s["hands"][0]["verts3d"], s["objects"][0]["verts3d"],
             ds.mano.faces("right").numpy(), s["objects"][0]["faces"][0],
             s["camera"]["K"])
+
+
+def box_sdf(grid, half=(0.5, 0.5, 0.5), shift=(0.0, 0.0, 0.0)):
+    """A box's interior distance min_i(h_i - |x_i - c_i|) at the voxelizer's
+    cell centres, 0 outside, as (1, G, G, G) float64."""
+    axis = -1.0 + (2.0 * np.arange(grid) + 1.0) / grid
+    d = [np.asarray(h) - np.abs(axis - c) for h, c in zip(half, shift)]
+    phi = np.minimum(np.minimum(d[0][:, None, None], d[1][None, :, None]),
+                     d[2][None, None, :])
+    return np.maximum(phi, 0.0)[None]
+
+
+# The box's top and bottom faces are split along their diagonals; a column
+# through a diagonal meets both triangles of each (its edge function is 0
+# on the shared edge), four crossings, so reads as outside, in the plain
+# version and the JAX kernel alike. Shifting the box by a fraction of a
+# cell in y moves every diagonal off the cell centres at G 16-1,024.
+BOX_SHIFT = (0.0, 0.37 / 512, 0.0)
+
+
+def shifted_box():
+    """core/meshes.py box_mesh() moved by BOX_SHIFT."""
+    from homan_tpu_torch.core.meshes import box_mesh
+    v, f = box_mesh()
+    return v + np.asarray(BOX_SHIFT, np.float32), f
