@@ -165,7 +165,20 @@ Phases, each fatal on failure:
      within 3e-3 of the unsharded fit; the driver with --frames_sharded 1
      on phase 5's small clip (run there): the warning, and the joint state
      of the run without the flag within 3e-3; multihost in two processes
-     over gloo; entry.dryrun_multichip(4).
+     over gloo; entry.dryrun_multichip(4); then (g) the headline clip (30
+     frames, 256^2, tile 128, Ke sized from the demand) with its frames
+     over a mesh of two processes that share the card (gloo, one entry
+     each, 15 frames a process, parallel/multihost.py's gather_frames and
+     replicate), 50 steps, each worker fitting three times with counts
+     set to 0 just before each run and read just after (the last run with
+     host time taken around every collective); gates: the two ranks'
+     final states and loss histories bit-equal, each within 3e-3 of the
+     unsharded card fit at the same steps, shade_fwd and shade_bwd 50
+     launches a run in each process, the shade pair at a worker's
+     15-frame pack against its plain version (phase 2's checks), neither
+     worker loading jax or homan_tpu; a worker's failure fails the phase
+     and every process is stopped; printed: the wall per step of the
+     sharded and the unsharded fit and the collectives' time per step.
 The last lines are the card, a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is absent or any phase fails.
@@ -2397,6 +2410,203 @@ def multihost_check():
     return {"indices": [o["idxs"] for o in outs], "ok": True}
 
 
+# Phase 9 (g): the headline clip (bench_joint: 30 frames, 256^2, tile 128)
+# with its frames over a mesh of two processes sharing the card, one entry
+# each (15 frames a process), gloo.
+PROCS9, PROC_ITERS9 = 2, 50
+
+_FRAMES_WORKER = """
+import datetime, json, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from homan_tpu_torch.parallel import frames as fpar
+from homan_tpu_torch.parallel import multihost
+from homan_tpu_torch.render import rasterizer as R
+from homan_tpu_torch.fit import model as M
+
+pid, coord, scene_path, out_path = (int(sys.argv[1]), sys.argv[2],
+                                    sys.argv[3], sys.argv[4])
+multihost.initialize(coord, 2, pid, timeout=datetime.timedelta(minutes=3))
+sc = torch.load(scene_path, map_location="cuda", weights_only=False)
+state, consts, cfg, settings, iters = (sc["state"], sc["consts"], sc["cfg"],
+                                       sc["settings"], sc["iters"])
+mesh = fpar.make_frame_mesh()
+cs.check(mesh.size == 2 and len(mesh.devices) == 1,
+         f"frame mesh {mesh}")
+
+# Host time in the collectives: synchronize, the call, synchronize.
+spent = [0.0, 0]
+
+
+def timed(fn):
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+    return run
+
+
+def fit():
+    cs.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, hist = fpar.fit_frames_sharded(state, consts, cfg, mesh,
+                                          num_iterations=iters,
+                                          roi_settings=settings)
+    torch.cuda.synchronize()
+    return final, hist, time.perf_counter() - t0, cs.read_counts()
+
+
+_, _, wall_first, counts_first = fit()
+final, hist, wall, counts = fit()
+names = ("all_gather_into_tensor", "all_reduce")
+plain = {n: getattr(dist, n) for n in names}
+for n in names:
+    setattr(dist, n, timed(plain[n]))
+_, _, wall_timed, counts_timed = fit()
+for n in names:
+    setattr(dist, n, plain[n])
+
+# The shade pair at this process's shape, against its plain version.
+shard_state, shard_consts = (x[0] for x in fpar.shard_frames(state, consts,
+                                                             mesh))
+with torch.no_grad():
+    v, _ = M.get_verts_object(shard_state, shard_consts)
+    seg, anc, _, static = R.shade_prep(v, shard_consts.faces_object,
+                                       shard_consts.camintr_rois_object,
+                                       settings)
+pair = cs.compare_kernels(torch, f"frames-process-{pid}", seg, anc, static,
+                          timed=False)
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                           "homan_tpu"))
+cs.check(not bad, f"a frames worker loaded {bad}")
+torch.save({"final": {k: None if t is None else t.cpu()
+                      for k, t in vars(final).items()},
+            "hist": {k: t.cpu() for k, t in hist.items()}}, out_path)
+print(json.dumps({
+    "pid": pid, "frames": int(seg.shape[0]), "first_wall_s": wall_first,
+    "wall_s": wall, "wall_timed_s": wall_timed, "counts": counts,
+    "counts_first": counts_first, "counts_timed": counts_timed,
+    "collective_s": spent[0],
+    "collective_calls": spent[1], "sil_err": pair["sil_err"],
+    "gseg_err": pair["gseg_err"]}))
+"""
+
+
+def frames_process_check(torch, joint, scene, settings):
+    """Phase 9 (g): the headline clip's frames over two processes sharing
+    the card (multihost gloo, one entry each), PROC_ITERS9 steps. Each
+    worker fits three times, counts set to 0 just before each run and read
+    just after: a first run, the measured run (its results and wall), and
+    a run with host time taken around every collective (synchronize before
+    and after); then it holds the shade pair at its 15-frame shape against
+    the plain version. Gates: the ranks' final
+    states and loss histories bit-equal, each within 3e-3 of the unsharded
+    card fit at the same steps, the shade pair PROC_ITERS9 times a run in
+    each process. A worker failure fails the phase; every process is
+    stopped."""
+    import os
+    import socket
+    import tempfile
+    from homan_tpu_torch.fit import model as M
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single, h1 = joint.optimize_hand_object(
+        scene.init_state, scene.consts, scene.cfg,
+        num_iterations=PROC_ITERS9, roi_settings=settings, device="cuda")
+    torch.cuda.synchronize()
+    wall_un = time.perf_counter() - t0
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "scene.pt")
+        torch.save({"state": scene.init_state, "consts": scene.consts,
+                    "cfg": scene.cfg, "settings": settings,
+                    "iters": PROC_ITERS9}, scene_path)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=repo)
+        outs = [os.path.join(tmp, f"out{pid}.pt") for pid in range(PROCS9)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _FRAMES_WORKER, str(pid),
+             f"localhost:{port}", scene_path, outs[pid]], env=env, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(PROCS9)]
+        reports = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                check(p.returncode == 0,
+                      f"frames worker failed: {err[-3000:]}")
+                for line in out.strip().splitlines()[:-1]:
+                    print(f"  [frames worker] {line}", flush=True)
+                reports.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                p.kill()
+        wall_workers = time.perf_counter() - t0
+        results = [torch.load(o, weights_only=False) for o in outs]
+    expect = {"shade_fwd": PROC_ITERS9, "shade_bwd": PROC_ITERS9,
+              "depth_fwd": 0, "depth_bwd": 0, "voxelize": 0,
+              "shade_fwd_only": 0}
+    for r in reports:
+        for key in ("counts_first", "counts", "counts_timed"):
+            check(r[key] == expect, f"frames over processes: rank "
+                  f"{r['pid']} launches {r[key]}, the path's count is "
+                  f"{expect}")
+    a, b = results
+    for k, t in a["final"].items():
+        check((t is None and b["final"][k] is None) or torch.equal(
+            t, b["final"][k]), f"frames over processes: ranks differ in {k}")
+    for k, t in a["hist"].items():
+        check(torch.equal(t, b["hist"][k]),
+              f"frames over processes: ranks' histories differ in {k}")
+    final = M.HomanState(**a["final"])
+    err = state_rel_err(final, single)
+    loss_err = float(((a["hist"]["loss"] - h1["loss"].cpu()).abs()
+                      / h1["loss"].cpu().abs()).max())
+    check(max(err.values()) <= 3e-3 and loss_err <= 3e-3,
+          f"frames over processes differ from the unsharded fit: loss "
+          f"{loss_err}, states {err}")
+    check(float(a["hist"]["edge_budget_excess"].max()) <= 0,
+          "frames over processes: edge budget overflowed")
+    walls = [r["wall_s"] for r in reports]
+    coll = [r["collective_s"] for r in reports]
+    rec = {
+        "frames": FRAMES, "processes": PROCS9, "iters": PROC_ITERS9,
+        "frames_per_process": reports[0]["frames"],
+        "sharded_ms_per_step": [w / PROC_ITERS9 * 1e3 for w in walls],
+        "sharded_timed_ms_per_step": [r["wall_timed_s"] / PROC_ITERS9 * 1e3
+                                      for r in reports],
+        "unsharded_ms_per_step": wall_un / PROC_ITERS9 * 1e3,
+        "collective_ms_per_step": [c / PROC_ITERS9 * 1e3 for c in coll],
+        "collective_calls_per_step": reports[0]["collective_calls"]
+        / PROC_ITERS9,
+        "workers_wall_s": wall_workers, "launches": reports[0]["counts"],
+        "loss_max_rel_err": loss_err, "state_max_rel_err": max(err.values()),
+        "shade_pair_sil_err": [r["sil_err"] for r in reports],
+        "shade_pair_gseg_err": [r["gseg_err"] for r in reports]}
+    print(f"frames over {PROCS9} processes, 1 card ({FRAMES} frames, "
+          f"{reports[0]['frames']} a process, {PROC_ITERS9} steps): sharded "
+          f"{rec['sharded_ms_per_step']} ms/step, unsharded "
+          f"{rec['unsharded_ms_per_step']:.3f} ms/step; collectives "
+          f"{rec['collective_ms_per_step']} ms/step "
+          f"({rec['collective_calls_per_step']:g} calls a step, host clock "
+          f"after synchronize, a run of its own: "
+          f"{rec['sharded_timed_ms_per_step']} ms/step); ranks bit-equal; "
+          f"vs unsharded loss {loss_err:.3g}, state {max(err.values()):.3g}"
+          f"; launches " + json.dumps(reports[0]["counts"]), flush=True)
+    return rec
+
+
 def state_rel_err(a, b):
     """Each field's max |a - b| over the max |b|."""
     return {k: float((getattr(a, k).cpu() - v.cpu()).abs().max()
@@ -2404,7 +2614,8 @@ def state_rel_err(a, b):
             for k, v in vars(b).items() if v is not None}
 
 
-def parallel_phase(torch, headline_launches):
+def parallel_phase(torch, headline_launches, headline_scene,
+                   headline_settings):
     """Phase 9: parallel/ on the card. (a) the batched clip fit at
     bench_multiclip's full preset twice, counts read around each run: the
     shade pair launches once a step, each clip's loss finite and falling,
@@ -2414,8 +2625,9 @@ def parallel_phase(torch, headline_launches):
     pad_mesh, 5 batched steps, the shade and voxelizer outputs on the
     padded meshes against the unpadded; (d) fit_frames_sharded over 2
     entries of the card against the unsharded fit; (e) multihost in two
-    processes; (f) entry.dryrun_multichip(4). Returns (record, counts of
-    the second batched run)."""
+    processes; (f) entry.dryrun_multichip(4); (g) the headline clip's
+    frames over two processes (frames_process_check). Returns (record,
+    counts of the second batched run)."""
     import dataclasses
 
     from homan_tpu_torch import entry
@@ -2626,6 +2838,9 @@ def parallel_phase(torch, headline_launches):
     t0 = time.perf_counter()
     entry.dryrun_multichip(4)
     out["dryrun_multichip_s"] = time.perf_counter() - t0
+    # (g) The headline clip's frames over two processes on the card.
+    out["frames_processes"] = frames_process_check(
+        torch, joint, headline_scene, headline_settings)
     return out, counts
 
 
@@ -2906,7 +3121,7 @@ def main(argv=None) -> int:
 
     # 9. parallel/: batched clips, frame sharding, multihost, the dry run --
     parallel, multiclip_counts = parallel_phase(
-        torch, step1["launch_calls_per_step"])
+        torch, step1["launch_calls_per_step"], scene, fit_settings)
     parallel["driver_frames_sharded"] = driver.pop("frames_sharded_flag")
     phase_done(9)
 
@@ -3018,6 +3233,8 @@ def main(argv=None) -> int:
         k["launches_per_eval"] = eval_counts[k["name"]]
         k["launches_per_tritri_fit"] = tritri_counts[k["name"]]
         k["launches_per_multiclip_fit"] = multiclip_counts[k["name"]]
+        k["launches_per_frames_process_fit"] = parallel[
+            "frames_processes"]["launches"][k["name"]]
     for part, shade_rows, vox_rows in (("driver", d_shade, d_vox),
                                        ("cached", c_shade, c_vox)):
         for k in kernels[:2]:

@@ -51,6 +51,7 @@ from homan_tpu_torch.fit import joint, postprocess
 from homan_tpu_torch.fit import model as M
 from homan_tpu_torch.frontend import cachedfit, gtevidence
 from homan_tpu_torch.parallel import frames as fpar
+from homan_tpu_torch.parallel import multihost
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                auto_edge_settings,
                                                bump_edge_settings)
@@ -230,10 +231,16 @@ def build_joint_inputs(person_parameters, object_parameters, obj_verts_can,
 
 
 def _frames_shard_devices(frame_nb: int, device) -> int:
-    """Largest count of the devices of `device`'s kind that divides the
-    clip length (whole frames per device); 1 = not applicable."""
-    ndev = torch.cuda.device_count() if device.type == "cuda" else 1
-    return max(d for d in range(1, ndev + 1) if frame_nb % d == 0)
+    """Largest count of CUDA mesh entries that divides the clip length
+    (whole frames per entry); 1 = not applicable. Inside a process group
+    the entries are every process's CUDA devices, as the JAX driver's
+    len(jax.devices()) counts them, in the sizes a mesh over the processes
+    takes (the same count from each)."""
+    if device.type != "cuda":
+        return 1
+    world = multihost.process_count()
+    return max((world * j for j in range(1, torch.cuda.device_count() + 1)
+                if frame_nb % (world * j) == 0), default=1)
 
 
 def _sample_metrics(annots, state, final_state, consts, cfg, device):

@@ -130,6 +130,7 @@ def leaf_params(state: M.HomanState, cfg: M.HomanConfig,
 def fit_loop(params: Dict[str, torch.Tensor], cfg: M.HomanConfig, lr: float,
              loss_fn: Callable, raster_schedule: List,
              after_step: Callable | None = None, opt_state=None,
+             backward_scale: float = 1.0,
              ) -> Tuple[torch.optim.Adam, Dict[str, torch.Tensor]]:
     """The Adam loop of every fit.
 
@@ -137,6 +138,9 @@ def fit_loop(params: Dict[str, torch.Tensor], cfg: M.HomanConfig, lr: float,
     leaves; `total` is a scalar, or a (C,) vector of independent clips'
     totals whose sum gives each clip its own gradient. after_step(i, iters,
     done, total_iters) runs after each step (i counts within the phase).
+    backward_scale: what the total is multiplied by before its backward
+    (the histories keep it unscaled); a frame-sharded fit over processes
+    gives 1 / processes.
     Returns the optimizer and the histories, stacked on a leading step axis.
     """
     optimizer = make_optimizer(params, cfg, lr)
@@ -149,7 +153,9 @@ def fit_loop(params: Dict[str, torch.Tensor], cfg: M.HomanConfig, lr: float,
         for i in range(1, iters + 1):
             optimizer.zero_grad(set_to_none=True)
             loss, loss_dict, metric_dict = loss_fn(settings)
-            (loss if loss.dim() == 0 else loss.sum()).backward()
+            total = loss if loss.dim() == 0 else loss.sum()
+            (total if backward_scale == 1.0
+             else total * backward_scale).backward()
             optimizer.step()
             for k, v in (("loss", loss), *loss_dict.items(),
                          *metric_dict.items()):

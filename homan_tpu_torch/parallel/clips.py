@@ -36,13 +36,20 @@ from homan_tpu_torch.render.rasterizer import RasterSettings
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMesh:
-    """An ordered tuple of devices along one named axis."""
+    """An ordered tuple of devices along one named axis: this process's
+    entries (`devices`) of a mesh that spans `process_count` processes,
+    each holding as many entries, in rank order; this process is
+    `process_index`. Global entry `process_index * len(devices) + j` is
+    local entry j."""
     devices: Tuple[torch.device, ...]
     axis: str
+    process_count: int = 1
+    process_index: int = 0
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """Entries over all processes."""
+        return len(self.devices) * self.process_count
 
 
 def make_mesh(n_devices: int | None, axis: str,
