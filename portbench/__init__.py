@@ -1,0 +1,17 @@
+"""The benchmark of homan_tpu_torch, the PyTorch/CUDA port of homan_tpu.
+
+One command runs one cell once:
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+The cells, configurations and metrics are listed in BENCHMARK.json at the
+root of the checkout. Everything that belongs to one configuration
+(`configs/`), one traffic mix (`traffic/`) or one per-layer metric
+(`metrics/`) is a file of its own, found by its name.
+
+`reference/` is the plain PyTorch reference that decides `correct`; it
+imports nothing of the port. `yardstick/` holds the peaks of the card, the
+kernels' work formulas and the trace arithmetic, frozen here so that a
+change to the program cannot move them.
+"""
