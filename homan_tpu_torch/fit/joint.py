@@ -26,6 +26,7 @@ from homan_tpu_torch import resolve_device
 from homan_tpu_torch.fit import losses as L
 from homan_tpu_torch.fit import model as M
 from homan_tpu_torch.render.rasterizer import MeshTopology
+from homan_tpu_torch.utils_profiling import span
 
 _GROUP_LR_SCALE = {"rigid": 1.0, "mano": 10.0, "rot": 10.0}
 
@@ -141,6 +142,8 @@ def fit_loop(params: Dict[str, torch.Tensor], cfg: M.HomanConfig, lr: float,
     backward_scale: what the total is multiplied by before its backward
     (the histories keep it unscaled); a frame-sharded fit over processes
     gives 1 / processes.
+    Under utils_profiling.tracing() each step is a `fit.step` span holding
+    `fit.forward` (loss_fn), `fit.backward` and `fit.adam`.
     Returns the optimizer and the histories, stacked on a leading step axis.
     """
     optimizer = make_optimizer(params, cfg, lr)
@@ -151,18 +154,23 @@ def fit_loop(params: Dict[str, torch.Tensor], cfg: M.HomanConfig, lr: float,
     done = 0
     for iters, settings in raster_schedule:
         for i in range(1, iters + 1):
-            optimizer.zero_grad(set_to_none=True)
-            loss, loss_dict, metric_dict = loss_fn(settings)
-            total = loss if loss.dim() == 0 else loss.sum()
-            (total if backward_scale == 1.0
-             else total * backward_scale).backward()
-            optimizer.step()
-            for k, v in (("loss", loss), *loss_dict.items(),
-                         *metric_dict.items()):
-                history.setdefault(k, []).append(v.detach())
-            done += 1
-            if after_step is not None:
-                after_step(i, iters, done, total_iters)
+            with span("fit.step"):
+                optimizer.zero_grad(set_to_none=True)
+                with span("fit.forward"):
+                    loss, loss_dict, metric_dict = loss_fn(settings)
+                    total = loss if loss.dim() == 0 else loss.sum()
+                    if backward_scale != 1.0:
+                        total = total * backward_scale
+                with span("fit.backward"):
+                    total.backward()
+                with span("fit.adam"):
+                    optimizer.step()
+                for k, v in (("loss", loss), *loss_dict.items(),
+                             *metric_dict.items()):
+                    history.setdefault(k, []).append(v.detach())
+                done += 1
+                if after_step is not None:
+                    after_step(i, iters, done, total_iters)
     return optimizer, {k: torch.stack(v) for k, v in history.items()}
 
 

@@ -23,6 +23,7 @@ from homan_tpu_torch.interactions import sdf as sdf_lib
 from homan_tpu_torch.render.rasterizer import (MeshTopology, RasterSettings,
                                                rasterize_depth,
                                                rasterize_soft)
+from homan_tpu_torch.utils_profiling import span
 
 DEFAULT_LW = {
     "lw_smooth_obj": 2000.0,
@@ -366,13 +367,14 @@ def render_terms(state: M.HomanState, consts: M.HomanConsts,
     # The scale-detached variant needs a second MANO pass; only the
     # collision and contact terms read it (homan/homan.py:432).
     if with_sdf_terms:
-        out["verts_hand_detscale"], _ = M.get_verts_hand(
-            state, consts, cfg, detach_scale=True)
-    if with_grids:
-        out["grids"], _ = build_interaction_grids(
-            out["verts_hand_detscale"], out["verts_object"],
-            _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
-            cfg.hand_nb)
+        with span("interactions"):
+            out["verts_hand_detscale"], _ = M.get_verts_hand(
+                state, consts, cfg, detach_scale=True)
+            if with_grids:
+                out["grids"], _ = build_interaction_grids(
+                    out["verts_hand_detscale"], out["verts_object"],
+                    _faces_of(consts.faces_object),
+                    _faces_of(closed_hand_faces), cfg.hand_nb)
     if lw["lw_sil_obj"] > 0:
         out["sil_object"] = rasterize_soft(
             out["verts_object"], consts.faces_object,
@@ -428,12 +430,13 @@ def reduce_terms(rendered: Dict, state: M.HomanState, consts: M.HomanConsts,
                 _faces_of(closed_hand_faces), verts_object.detach(),
                 _faces_of(consts.faces_object), cfg.hand_nb)
     if sdf_terms:
-        loss_dict.update(compute_interaction_sdf_terms(
-            rendered["verts_hand_detscale"], verts_object,
-            _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
-            cfg.hand_nb, with_collision=lw["lw_collision"] > 0
-            and not tritri, with_contact=lw["lw_contact"] > 0,
-            sdf_mode=cfg.sdf_mode, grids=rendered.get("grids")))
+        with span("interactions"):
+            loss_dict.update(compute_interaction_sdf_terms(
+                rendered["verts_hand_detscale"], verts_object,
+                _faces_of(consts.faces_object), _faces_of(closed_hand_faces),
+                cfg.hand_nb, with_collision=lw["lw_collision"] > 0
+                and not tritri, with_contact=lw["lw_contact"] > 0,
+                sdf_mode=cfg.sdf_mode, grids=rendered.get("grids")))
     if lw["lw_v2d_hand"] > 0:
         l, m = compute_v2d_loss_hand(verts_hand, consts.camintr,
                                      consts.ref_verts2d_hand, cfg.image_size,

@@ -39,6 +39,7 @@ from homan_tpu_torch.render.depth import DepthStatic, depth_tiles
 from homan_tpu_torch.render.shade import (FWD_MAX_KE, ShadeStatic,
                                           fold_batched, shade_tiles,
                                           unfold_batched)
+from homan_tpu_torch.utils_profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,67 +276,74 @@ def shade_prep(verts, topo: MeshTopology, K, settings: RasterSettings):
     Returns seg_pack (B, T, 8, Ke) with rows [p0x, p0y, p1x, p1y, sign,
     valid, flip, 0] (empty slots sit 99 units away), anchors (B, T, tp, tp),
     e_demand (B,) the largest per-tile contour-edge count before the Ke
-    truncation, and the kernel's ShadeStatic.
+    truncation, and the kernel's ShadeStatic. Under
+    utils_profiling.tracing() the prep is a `raster.prep` span, and the
+    counter `raster.contour_edges` counts the contour edges among the edges
+    the anchor sweep and the tile overlap read.
     """
-    s = settings
-    S, tp = s.image_size, s.tile_px
-    if S % tp:
-        raise ValueError("image_size must be a multiple of tile_px")
-    g = S // tp
-    T = g * g
-    ke = min(s.edges_per_tile, topo.edges.shape[0])
-    margin = s.bin_margin_px / S
-    cap2 = margin * margin
-    uv, z = project_ndc(verts, K)
-    p0, p1, cross_sign, is_contour, flip = _contour_data(uv, z, topo, s)
-    B = p0.shape[0]
-    dev = verts.device
+    with span("raster.prep"):
+        s = settings
+        S, tp = s.image_size, s.tile_px
+        if S % tp:
+            raise ValueError("image_size must be a multiple of tile_px")
+        g = S // tp
+        T = g * g
+        ke = min(s.edges_per_tile, topo.edges.shape[0])
+        margin = s.bin_margin_px / S
+        cap2 = margin * margin
+        uv, z = project_ndc(verts, K)
+        p0, p1, cross_sign, is_contour, flip = _contour_data(uv, z, topo, s)
+        count("raster.contour_edges", is_contour)
+        B = p0.shape[0]
+        dev = verts.device
 
-    with torch.no_grad():
-        # Winding anchors at tile-column right boundaries over ALL contour
-        # edges: oriented crossings of the +x ray, one (B, S, E) reduction
-        # per tile column.
-        ys_all = (torch.arange(S, device=dev, dtype=torch.float32)
-                  + 0.5) / S
-        y0 = p0[..., 1][:, None, :]
-        y1 = p1[..., 1][:, None, :]
-        py = ys_all[None, :, None]
-        spans = (y0 <= py) != (y1 <= py)
-        dy = y1 - y0
-        t = (py - y0) / torch.where(dy.abs() > 1e-12, dy,
-                                    torch.ones((), device=dev))
-        x_int = p0[..., 0][:, None, :] + t * (p1[..., 0] - p0[..., 0])[
-            :, None, :]
-        zero = torch.zeros((), device=dev)
-        contrib = torch.where(spans, cross_sign[:, None, :], zero)
-        anchors = torch.stack([
-            torch.where(x_int > (gc + 1.0) * tp / S, contrib, zero).sum(-1)
-            for gc in range(g)], dim=1)  # (B, g, S)
+        with torch.no_grad():
+            # Winding anchors at tile-column right boundaries over ALL
+            # contour edges: oriented crossings of the +x ray, one (B, S, E)
+            # reduction per tile column.
+            ys_all = (torch.arange(S, device=dev, dtype=torch.float32)
+                      + 0.5) / S
+            y0 = p0[..., 1][:, None, :]
+            y1 = p1[..., 1][:, None, :]
+            py = ys_all[None, :, None]
+            spans = (y0 <= py) != (y1 <= py)
+            dy = y1 - y0
+            t = (py - y0) / torch.where(dy.abs() > 1e-12, dy,
+                                        torch.ones((), device=dev))
+            x_int = p0[..., 0][:, None, :] + t * (p1[..., 0] - p0[..., 0])[
+                :, None, :]
+            zero = torch.zeros((), device=dev)
+            contrib = torch.where(spans, cross_sign[:, None, :], zero)
+            anchors = torch.stack([
+                torch.where(x_int > (gc + 1.0) * tp / S, contrib, zero).sum(-1)
+                for gc in range(g)], dim=1)  # (B, g, S)
 
-        overlap = _tile_overlap(torch.minimum(p0, p1), torch.maximum(p0, p1),
-                                is_contour, s, margin)  # (B, T, E)
-        e_demand = overlap.sum(-1).amax(-1)
-        binned = _bin_first(overlap, ke)
-        sel_c = _BinnedRows.apply(
-            torch.stack([cross_sign, flip * is_contour], dim=-1), *binned)
-        hitf = binned[1].to(torch.float32)
-        far = 99.0 * (1.0 - hitf)
+            overlap = _tile_overlap(torch.minimum(p0, p1),
+                                    torch.maximum(p0, p1), is_contour, s,
+                                    margin)  # (B, T, E)
+            e_demand = overlap.sum(-1).amax(-1)
+            binned = _bin_first(overlap, ke)
+            sel_c = _BinnedRows.apply(
+                torch.stack([cross_sign, flip * is_contour], dim=-1), *binned)
+            hitf = binned[1].to(torch.float32)
+            far = 99.0 * (1.0 - hitf)
 
-    # (B, T, ke, 4) endpoints, with gradient
-    sel = _BinnedRows.apply(torch.cat([p0, p1], dim=-1), *binned)
-    seg_pack = torch.stack(
-        [sel[..., 0] + far, sel[..., 1] + far, sel[..., 2] + far,
-         sel[..., 3] + far, sel_c[..., 0], hitf, sel_c[..., 1],
-         torch.zeros_like(hitf)], dim=-2)  # (B, T, 8, ke)
+        # (B, T, ke, 4) endpoints, with gradient
+        sel = _BinnedRows.apply(torch.cat([p0, p1], dim=-1), *binned)
+        seg_pack = torch.stack(
+            [sel[..., 0] + far, sel[..., 1] + far, sel[..., 2] + far,
+             sel[..., 3] + far, sel_c[..., 0], hitf, sel_c[..., 1],
+             torch.zeros_like(hitf)], dim=-2)  # (B, T, 8, ke)
 
-    with torch.no_grad():
-        tile_gx = torch.arange(T, device=dev) % g
-        rows = ((torch.arange(T, device=dev) // g)[:, None] * tp
-                + torch.arange(tp, device=dev)[None])
-        anchor_rows = anchors[:, tile_gx[:, None], rows]  # (B, T, tp)
-        anchor_px = anchor_rows[..., None].expand(B, T, tp, tp).contiguous()
-    static = ShadeStatic(tp, S, g, s.sigma, cap2, ke)
-    return seg_pack, anchor_px, e_demand, static
+        with torch.no_grad():
+            tile_gx = torch.arange(T, device=dev) % g
+            rows = ((torch.arange(T, device=dev) // g)[:, None] * tp
+                    + torch.arange(tp, device=dev)[None])
+            anchor_rows = anchors[:, tile_gx[:, None], rows]  # (B, T, tp)
+            anchor_px = anchor_rows[..., None].expand(
+                B, T, tp, tp).contiguous()
+        static = ShadeStatic(tp, S, g, s.sigma, cap2, ke)
+        return seg_pack, anchor_px, e_demand, static
 
 
 def rasterize_soft(verts, topology, K,

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from homan_tpu_torch.utils_profiling import physical
+
 # Launch counts of the CUDA kernels (the plain versions do not count);
 # shade_fwd_only_launches counts the forward's launches in its forward-only
 # mode, which shade_fwd_launches includes.
@@ -390,12 +392,7 @@ def needs_grad(x) -> bool:
     """Whether a kernel's input carries a gradient: grad mode on and x
     requiring it, also under torch.func.vmap, where a batched tensor
     reports requires_grad False and the physical tensor beneath knows."""
-    if not torch.is_grad_enabled():
-        return False
-    from torch._C import _functorch
-    while _functorch.is_batchedtensor(x):
-        x = _functorch.get_unwrapped(x)
-    return x.requires_grad
+    return torch.is_grad_enabled() and physical(x).requires_grad
 
 
 def fold_batched(in_dims, *tensors):

@@ -1,22 +1,97 @@
-"""Per-stage wall timers, device traces and analytic work counts
+"""Per-stage wall timers, program spans and counters, and device traces
 (homan_tpu/utils_profiling.py).
 
 A timer that is asked to sync waits for the card with
 `torch.cuda.synchronize()` before it stops, so work queued on the device is
-charged to the stage that queued it. Device traces come from
-`torch.profiler` in place of the JAX package's xplane files: the device's
-busy time is the union of the CUDA kernel, copy and set intervals of the
-trace, read from its raw events (the profiler's own aggregation,
-`key_averages`, takes minutes over ~10^6 events).
+charged to the stage that queued it.
+
+Spans and counters record only inside `tracing()`, and are off by default.
+A span is a `torch.profiler.record_function` range, so it lands in the same
+profiler trace as the device's kernels, on the trace's clock; off, `span`
+returns a shared null context after one boolean test. A counter adds a
+mask's nonzero count and its size to accumulators on the mask's device,
+with no host sync; `counters()` reads and resets them. Tracing changes no
+value the program computes.
+
+Device traces come from `torch.profiler` in place of the JAX package's
+xplane files: the device's busy time is the union of the CUDA kernel, copy
+and set intervals of the trace, read from its raw events (the profiler's
+own aggregation, `key_averages`, takes minutes over ~10^6 events).
 """
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+
+_tracing = False
+_NULL = contextlib.nullcontext()
+# (counter name, device) -> [nonzero count (a device tensor), elements]
+_counts: Dict[Tuple[str, torch.device], list] = {}
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans and counters on for the block. The outermost block starts
+    with no counts."""
+    global _tracing
+    before = _tracing
+    if not before:
+        _counts.clear()
+    _tracing = True
+    try:
+        yield
+    finally:
+        _tracing = before
+
+
+def span(name: str):
+    """A profiler range named `name` while tracing is on; otherwise a
+    null context."""
+    if not _tracing:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def physical(x: torch.Tensor) -> torch.Tensor:
+    """The tensor beneath torch.func.vmap's batched wrappers (x itself
+    outside vmap): all of the vmapped entries at once."""
+    from torch._C import _functorch
+    while _functorch.is_batchedtensor(x):
+        x = _functorch.get_unwrapped(x)
+    return x
+
+
+def count(name: str, mask: torch.Tensor) -> None:
+    """While tracing is on, add mask's nonzero entries and its size to
+    counter `name`; under vmap every vmapped entry counts."""
+    if not _tracing:
+        return
+    x = physical(mask)
+    hits = torch.count_nonzero(x)
+    acc = _counts.get((name, x.device))
+    if acc is None:
+        _counts[(name, x.device)] = [hits, x.numel()]
+    else:
+        acc[0] = acc[0] + hits
+        acc[1] += x.numel()
+
+
+def counters() -> Dict[str, Tuple[int, int]]:
+    """{name: (nonzero entries, entries)} counted since the last call (or
+    the outermost tracing block's start), as host ints after one device
+    synchronize; resets them."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    out: Dict[str, Tuple[int, int]] = {}
+    for (name, _), (hits, n) in _counts.items():
+        h0, n0 = out.get(name, (0, 0))
+        out[name] = (h0 + int(hits), n0 + n)
+    _counts.clear()
+    return out
 
 
 class StageTimers:
@@ -28,17 +103,18 @@ class StageTimers:
 
     @contextlib.contextmanager
     def time(self, name: str, sync: bool = False):
-        """Time the block under `name`. With sync the clock stops after
-        torch.cuda.synchronize(), where CUDA is in use (the JAX timers
-        block on a pytree there)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+        """Time the block under `name`, inside span(name). With sync the
+        clock stops after torch.cuda.synchronize(), where CUDA is in use
+        (the JAX timers block on a pytree there)."""
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def report(self) -> str:
         lines = []
@@ -47,41 +123,6 @@ class StageTimers:
             lines.append(f"{name:32s} {self.totals[name]:8.2f}s"
                          f"  x{n}  ({self.totals[name] / n * 1000:8.1f} ms avg)")
         return "\n".join(lines)
-
-
-# Operation counts of the TPU kernels' formulation
-# (homan_tpu/render/pallas_shade.py, interactions/pallas_sdf.py), kept under
-# the JAX package's names so a bench reads the same keys: per (pixel,
-# edge slot) ~13 winding and ~40 distance operations forward, one compare of
-# the one-hot backward and its (P, Ke) x (P, 4) matmul at 3 bf16 passes.
-# The card's kernels count their own work: render/shade.py `fwd_work` and
-# interactions/voxelize.py `work_ops`.
-SHADE_FWD_OPS_PER_PIX_EDGE = 53.0
-SHADE_BWD_VPU_OPS_PER_PIX_EDGE = 1.0
-SHADE_BWD_MXU_FLOPS_PER_PIX_EDGE = 24.0
-
-
-def shade_flops_per_iter(batch: int, image_size: int, edges_per_tile: int):
-    """Operations of one silhouette step's shade forward and backward in
-    the TPU kernels' formulation, every pixel against every edge slot of
-    its tile: B S^2 Ke times the per-pair counts. Returns {vpu_flops,
-    mxu_flops}."""
-    pix_edge = float(batch) * image_size * image_size * edges_per_tile
-    return {
-        "vpu_flops": pix_edge * (SHADE_FWD_OPS_PER_PIX_EDGE
-                                 + SHADE_BWD_VPU_OPS_PER_PIX_EDGE),
-        "mxu_flops": pix_edge * SHADE_BWD_MXU_FLOPS_PER_PIX_EDGE,
-    }
-
-
-def voxelize_flops_per_iter(batch: int, n_meshes: int, faces: int,
-                            grid_size: int = 32,
-                            ops_per_pair: float = 150.0):
-    """Operations of one grid-SDF step's voxelization in the TPU kernel's
-    dense formulation, every (cell, face) pair at `ops_per_pair`. Returns
-    {vpu_flops}."""
-    return {"vpu_flops": (float(batch) * n_meshes * grid_size ** 3
-                          * faces * ops_per_pair)}
 
 
 @contextlib.contextmanager

@@ -1,0 +1,8 @@
+"""The device's idle time while the host is in the program's `fit.adam`
+spans (or a span inside one), over the wall of the second traced stretch
+(span_stretch.py), %."""
+from portbench import span_stretch
+
+
+def read(ctx):
+    return span_stretch.share(ctx, "idle_under", "fit.adam", "wall_s")

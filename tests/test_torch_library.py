@@ -1,6 +1,6 @@
 """PyTorch port vs JAX package: the library functions no path of the port
-calls (bbox, geometry, camera, meshes, MANO, contact, profiling), each
-against its JAX twin on the same numpy inputs (CPU).
+calls (bbox, geometry, camera, meshes, MANO, contact), each against its
+JAX twin on the same numpy inputs, and the port's profiling helpers (CPU).
 
 Bands: numpy code equal bit for bit; float32 tensor code within 1e-6
 (1e-5 for the arccos near 0 and pi of matrix_to_axis_angle).
@@ -17,7 +17,6 @@ from homan_tpu.core import geometry as jgeo
 from homan_tpu.core import mano as jmano
 from homan_tpu.core import meshes as jmeshes
 from homan_tpu.interactions import contact as jcontact
-from homan_tpu import utils_profiling as jprof
 from homan_tpu_torch.core import bbox as tbbox
 from homan_tpu_torch.core import camera as tcam
 from homan_tpu_torch.core import geometry as tgeo
@@ -202,16 +201,6 @@ def test_thresh_contact_iou():
                                          torch.from_numpy(pred))
     np.testing.assert_allclose(t2n(ti), np.asarray(ji), atol=1e-6)
     assert float(ta) == pytest.approx(float(ja), abs=1e-6)
-
-
-def test_flop_counts_match_jax():
-    for args in ((10, 256, 48), (1, 64, 7)):
-        assert tprof.shade_flops_per_iter(*args) == \
-            jprof.shade_flops_per_iter(*args)
-    for args, kw in (((10, 2, 2832), {}),
-                     ((4, 1, 80), {"grid_size": 64, "ops_per_pair": 74.0})):
-        assert tprof.voxelize_flops_per_iter(*args, **kw) == \
-            jprof.voxelize_flops_per_iter(*args, **kw)
 
 
 def test_measure_duty_cycle_on_the_cpu(tmp_path):
