@@ -55,7 +55,16 @@ Phases, each fatal on failure:
        version by the same checks, and G 512 and 1,024 on box_mesh()
        shifted a fraction of a cell (BOX_SHIFT) against the box's analytic
        interior distance: the same inside set, phi within 1e-5,
-       deterministic (the kernels line's voxelize `grids` keys).
+       deterministic (the kernels line's voxelize `grids` keys);
+     - the raster prep kernel (render/csrc/prep.cu) at the benchmark
+       cells' shape (PREP_FRAMES frames of the headline clip's object,
+       256^2, tile 64, Ke 96): shade_prep's seg_pack, anchors and e_demand
+       and the launch's idx, hit and slot_of equal to the plain prep's
+       (`_shade_prep_plain`, its binning) on the same card tensors by
+       torch.equal, one launch a prep; `ms` and `device_ms` the launch
+       alone, `prep_ms` and `prep_device_ms` the card path's whole forward,
+       `plain_ms` the plain prep's forward; the bound counts the bytes the
+       launch writes and reads (its arithmetic is ~100 times below).
      --ab NAME=PATH builds another source of a kernel with the same C
      interface (the parent commit's, a design variant), checks its output
      against the package's (depth: depth, amax and gpack bit-equal, on the
@@ -66,7 +75,9 @@ Phases, each fatal on failure:
      by `device_ms`, with each call's kernels split by one torch.profiler
      window, then stops before phase 3.
   3. the paths, each run twice with every launch count set to 0 just
-     before a run and read just after; losses finite and falling, no
+     before a run and read just after (in every path the prep kernel once
+     for each shade forward: rasterize_soft preps every render); losses
+     finite and falling, no
      edge-budget overflow, a 10-step torch.profiler window each:
      - the stage-C headline: the 30-frame, 400-step fit;
      - the interaction fit (bench.py bench_config3, grid SDF, collision
@@ -209,6 +220,10 @@ LW_DEPTH = {"lw_depth": 1.0}
 # 128, refined at 128^2; the bench's edges_per_tile.
 FRAMES_B, INITS_B, ITERS_B, COARSE_B, CHUNK_B, KE_BENCH_B = (
     10, 500, 50, 35, 125, 64)
+# The raster prep kernel's check (phase 2) at the benchmark cells' shape
+# (portbench: 96 clips x 10 frames of the 1,280-face object, 256^2, tile
+# 64, Ke 96): the headline clip's 30 frames, 32 times over.
+PREP_FRAMES, PREP_TILE, PREP_KE = 960, 64, 96
 # Edge-slot buckets and headroom of the JAX package's auto_edge_settings
 # (homan_tpu/render/rasterizer.py:949,952).
 EDGE_BUCKETS = (48, 64, 96, 128, 192, 256, 384, 512)
@@ -602,6 +617,75 @@ def compare_kernels(torch, name, seg_pack, anchors, static, timed):
     print(f"kernel check [{name}] B,T,tp,ke={tuple(seg_pack.shape[:2])},"
           f"{static.tile_px},{static.ke}: " + json.dumps(out), flush=True)
     return out
+
+
+def compare_prep(torch, name, verts, topo, K, st):
+    """The raster prep kernel against the plain prep on the same card
+    tensors: shade_prep's seg_pack, anchor_px and e_demand against
+    _shade_prep_plain's, the launch's idx, hit and slot_of against the
+    plain binning's, each by torch.equal; one launch a shade_prep. Timed:
+    `ms` and `device_ms` the launch alone, `prep_ms` and `prep_device_ms`
+    the card path's whole forward (projection, gathers and pack
+    included), `plain_ms` the plain prep's forward. Bound: the bytes the
+    launch writes (every output) and reads (the vertices, projected and in
+    camera space, and the topology, once); its arithmetic (a few
+    operations a face, an edge and a (row, list entry)) is ~100 times
+    below. Returns the numbers."""
+    from homan_tpu_torch.render import rasterizer as R
+    margin, static = R._pack_static(topo, st)
+    S, tp, ke = static.image_size, static.tile_px, static.ke
+
+    def launch():
+        return R._prep_launch(uv, verts, topo.faces, topo.edges,
+                              topo.edge_faces, topo.edge_dir_f1, None, S, tp,
+                              ke, st.znear, margin)
+
+    with torch.no_grad():
+        uv, z = R.project_ndc(verts, K)
+        n0 = R.prep_launches
+        kern = R.shade_prep(verts, topo, K, st)
+        check(R.prep_launches == n0 + 1, f"{name}: shade_prep launched the "
+              f"prep kernel {R.prep_launches - n0} times, not once")
+        plain = R._shade_prep_plain(verts, topo, K, st)
+        out = launch()
+        p0, p1, _, is_contour, _ = R._contour_data(uv, z, topo, st)
+        overlap = R._tile_overlap(torch.minimum(p0, p1),
+                                  torch.maximum(p0, p1), is_contour, st,
+                                  margin)
+        p_bins = R._bin_first(overlap, ke)
+    torch.cuda.synchronize()
+    names = ("seg_pack", "anchor_px", "e_demand", "idx", "hit", "slot_of")
+    equal = {n: a.dtype == b.dtype and torch.equal(a, b) for n, a, b in
+             zip(names, kern[:3] + out[2:5], plain[:3] + p_bins)}
+    check(all(equal.values()), f"{name}: the prep kernel's outputs differ "
+          f"from the plain prep's: {equal}")
+    check(kern[3] == plain[3], f"{name}: ShadeStatic {kern[3]} differs "
+          f"from the plain prep's {plain[3]}")
+    err = max(float((a - b).abs().max()) for a, b in zip(kern[:2], plain[:2]))
+    B, E, F = verts.shape[0], topo.edges.shape[0], topo.faces.shape[0]
+    n_bytes = (sum(t.numel() * t.element_size() for t in out)
+               + (uv.numel() + verts.numel()) * 4 + F * 3 * 8 + E * 33)
+    bound, bound_by = _bound(n_bytes, 0)
+    n_c, n_r = out[7].double(), out[8].double()
+    res = {"frames": B, "image": S, "tile": tp, "ke": ke, "edges": E,
+           "faces": F, "equal": equal, "max_abs_err": err,
+           "demand_max": int(plain[2].max()),
+           "contour_edges_per_frame": float(n_c.mean()),
+           "list_entries_read_per_frame": float(n_r.mean()),
+           "bytes": n_bytes, "bound_ms": bound, "bound_by": bound_by}
+    del kern, plain, out, overlap, p_bins
+    with torch.no_grad():
+        res["ms"] = time_ms(torch, launch)
+        res["device_ms"] = device_ms(torch, launch)
+        res["prep_ms"] = time_ms(torch, lambda: R.shade_prep(verts, topo, K,
+                                                             st))
+        res["prep_device_ms"] = device_ms(
+            torch, lambda: R.shade_prep(verts, topo, K, st))
+        res["plain_ms"] = time_ms(torch, lambda: R._shade_prep_plain(
+            verts, topo, K, st), reps=10, inner=1)
+    print(f"kernel check [{name}] B,T,tp,ke={B},{static.g ** 2},{tp},{ke} "
+          f"(bit-equal): " + json.dumps(res), flush=True)
+    return res
 
 
 def depth_bounds(face_pack, static):
@@ -1010,9 +1094,10 @@ def size_faces(demand, n_faces):
 
 def _counter_modules():
     from homan_tpu_torch.interactions import voxelize
-    from homan_tpu_torch.render import depth, shade
+    from homan_tpu_torch.render import depth, rasterizer, shade
     return {"shade_fwd": shade, "shade_fwd_only": shade, "shade_bwd": shade,
-            "depth_fwd": depth, "depth_bwd": depth, "voxelize": voxelize}
+            "depth_fwd": depth, "depth_bwd": depth, "voxelize": voxelize,
+            "prep": rasterizer}
 
 
 def reset_counts():
@@ -1252,7 +1337,8 @@ def stage_b_clip(frames, image_size, rend, device):
 def stage_b_launches(frames, inits, iters, coarse, chunk, prune, rescore,
                      parallel):
     """Shade launches of one find_optimal_poses call: {"shade_fwd": with
-    residuals plus forward-only, "shade_fwd_only", "shade_bwd"}. A
+    residuals plus forward-only, "shade_fwd_only", "shade_bwd", "prep":
+    one a forward}. A
     refinement of n candidates in chunks of c runs ceil(n / c) chunks a
     step with a gradient, then each chunk once without (its final
     evaluation); the rescore runs its chunks once without."""
@@ -1278,7 +1364,7 @@ def stage_b_launches(frames, inits, iters, coarse, chunk, prune, rescore,
     only = sum(o for _, o in runs)
     return {"shade_fwd": res + only, "shade_fwd_only": only,
             "shade_bwd": res, "depth_fwd": 0, "depth_bwd": 0,
-            "voxelize": 0}
+            "voxelize": 0, "prep": res + only}
 
 
 def posed(torch, geo, vertices, rot, trans):
@@ -1682,8 +1768,8 @@ def driver_launches(args, budgets):
         bool(args.stageb_parallel_frames))
     fits = len(budgets["stage_c"]["attempts"])
     out = {k: v * sb["attempts"] for k, v in one.items()}
-    out["shade_fwd"] += args.num_joint_iterations * fits
-    out["shade_bwd"] += args.num_joint_iterations * fits
+    for name in ("shade_fwd", "shade_bwd", "prep"):
+        out[name] += args.num_joint_iterations * fits
     out["voxelize"] += 2
     return out
 
@@ -2277,7 +2363,7 @@ def tritri_launches(iters, hand_nb, lw):
     all when lw_contact is 0; one shade pair a step."""
     vox = (hand_nb + 1) * iters if lw.get("lw_contact", 0) > 0 else 0
     return {"voxelize": vox, "shade_fwd": iters, "shade_bwd": iters,
-            "depth_fwd": 0, "depth_bwd": 0}
+            "depth_fwd": 0, "depth_bwd": 0, "prep": iters}
 
 
 def tritri_phase(torch, joint, scene, roi, cfg, step_sdf, small,
@@ -2556,7 +2642,7 @@ def frames_process_check(torch, joint, scene, settings):
         results = [torch.load(o, weights_only=False) for o in outs]
     expect = {"shade_fwd": PROC_ITERS9, "shade_bwd": PROC_ITERS9,
               "depth_fwd": 0, "depth_bwd": 0, "voxelize": 0,
-              "shade_fwd_only": 0}
+              "shade_fwd_only": 0, "prep": PROC_ITERS9}
     for r in reports:
         for key in ("counts_first", "counts", "counts_timed"):
             check(r[key] == expect, f"frames over processes: rank "
@@ -2684,7 +2770,8 @@ def parallel_phase(torch, headline_launches, headline_scene,
               f"{walls[-1] / CLIPS9:.3f} s a clip); launches "
               + json.dumps(counts), flush=True)
         expect = {"shade_fwd": ITERS9, "shade_bwd": ITERS9, "depth_fwd": 0,
-                  "depth_bwd": 0, "voxelize": 0, "shade_fwd_only": 0}
+                  "depth_bwd": 0, "voxelize": 0, "shade_fwd_only": 0,
+                  "prep": ITERS9}
         check(counts == expect, f"multiclip: launches {counts}, the path's "
               f"count is {expect}")
         loss = hist["loss"].cpu()
@@ -2965,6 +3052,14 @@ def main(argv=None) -> int:
         results[name] = compare_kernels(torch, name, seg, anc, static,
                                         timed=True)
     adversarial_err = check_shade_bwd_adversarial(torch)
+    reps = PREP_FRAMES // FRAMES
+    jitter = torch.randn((PREP_FRAMES, 1, 3), device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(0)) * 2e-3
+    prep = compare_prep(
+        torch, f"prep-b{PREP_FRAMES}", v_obj.repeat(reps, 1, 1) + jitter,
+        c.faces_object, c.camintr_rois_object.repeat(reps, 1, 1),
+        R.RasterSettings(REND, tile_px=PREP_TILE, edges_per_tile=PREP_KE))
 
     # The interaction and ordinal-depth fits' scene: bench.py's
     # bench_config3 / bench_depth, 10 frames, 512^2 image, 256^2 ROI, with
@@ -3035,7 +3130,7 @@ def main(argv=None) -> int:
     walls1, counts1, hist, _ = timed_fit_pair(
         torch, joint, scene, fit_settings, ITERS, "fit",
         {"shade_fwd": ITERS, "shade_bwd": ITERS, "depth_fwd": 0,
-         "depth_bwd": 0, "voxelize": 0})
+         "depth_bwd": 0, "voxelize": 0, "prep": ITERS})
     check(float(hist["iou_object"][-1]) > float(hist["iou_object"][0]),
           "object IoU did not improve")
     step1 = profile_steps(torch, joint, scene, fit_settings, 10, "fit")
@@ -3047,7 +3142,8 @@ def main(argv=None) -> int:
     walls2, counts2, _, _ = timed_fit_pair(
         torch, joint, scene2, roi2, ITERS2, "interaction fit",
         {"voxelize": 2 * ITERS2, "shade_fwd": ITERS2,
-         "shade_bwd": ITERS2, "depth_fwd": 0, "depth_bwd": 0}, **inter_kw)
+         "shade_bwd": ITERS2, "depth_fwd": 0, "depth_bwd": 0,
+         "prep": ITERS2}, **inter_kw)
     step2 = profile_steps(torch, joint, scene2, roi2, 10, "interaction fit",
                           **inter_kw)
 
@@ -3056,7 +3152,8 @@ def main(argv=None) -> int:
     walls3, counts3, hist3, final3 = timed_fit_pair(
         torch, joint, scene2, roi2, ITERS3, "depth fit",
         {"depth_fwd": 2 * ITERS3, "depth_bwd": 2 * ITERS3,
-         "shade_fwd": ITERS3, "shade_bwd": ITERS3, "voxelize": 0},
+         "shade_fwd": ITERS3, "shade_bwd": ITERS3, "voxelize": 0,
+         "prep": ITERS3},
         **depth_kw)
     with torch.no_grad():
         v_obj3, _ = M.get_verts_object(final3, c2)
@@ -3079,7 +3176,7 @@ def main(argv=None) -> int:
                                  with_full_masks=True, device="cpu")
     small_set = R.RasterSettings(64, tile_px=32, edges_per_tile=48)
     small_fit_pair(torch, joint, small, small_set, 10, "small fit",
-                   {"shade_fwd": 10, "shade_bwd": 10})
+                   {"shade_fwd": 10, "shade_bwd": 10, "prep": 10})
     small_fit_pair(torch, joint, small, small_set, 3,
                    "small interaction fit", {"voxelize": 6},
                    cfg=dataclasses.replace(small.cfg, sdf_mode="grid"),
@@ -3197,6 +3294,19 @@ def main(argv=None) -> int:
          "plain_ms": mean2("plain_ms", v_rows),
          "bound_ms": mean2("bound_ms", v_rows),
          "bound_by": v_rows[0]["bound_by"], "library_ms": None},
+        # The raster prep at the benchmark cells' shape (phase 2): the
+        # launch alone under ms and device_ms; the card path's whole
+        # forward beside it; plain_ms the plain prep's forward.
+        {"name": "prep", "route": "cuda",
+         "source": "homan_tpu_torch/render/csrc/prep.cu",
+         "replaces": "homan_tpu/render/rasterizer.py:442 (XLA)",
+         "launches": counts1["prep"]}
+        | {k: prep[k] for k in ("max_abs_err", "ms", "device_ms",
+                                "prep_ms", "prep_device_ms", "plain_ms",
+                                "bound_ms", "bound_by", "bytes", "frames",
+                                "contour_edges_per_frame",
+                                "list_entries_read_per_frame")}
+        | {"library_ms": None},
     ]
     # Stage B's packs, under their own keys: the coarse and refinement
     # renders (B 125, and the coarse at B 500 in one launch; 128^2, one
@@ -3224,6 +3334,7 @@ def main(argv=None) -> int:
                 "max_abs_err": r["sil_err" if fwd else "gseg_err"],
                 "library_ms": None if fwd else min(
                     lib["library_index_add_ms"], lib["library_einsum_ms"])}
+    kernels[5]["stage_b"] = {"launches": stage_b["launches"]["prep"]}
     # The drivers' own shapes, under "driver" (phase 5, GT masks) and
     # "cached" (phase 6, cached detections): each shade render with
     # residuals and the backward, or forward-only, and the voxelizer of the

@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Every `csrc/` directory of the package holds kernel sources
-(`render/csrc/shade.cu`, `render/csrc/depth.cu`,
+(`render/csrc/shade.cu`, `render/csrc/depth.cu`, `render/csrc/prep.cu`,
 `interactions/csrc/voxelize.cu`); source names are unique across them. Each
 `<name>.cu` compiles on its own into `_build/<name>-<hash>.so` (plain C
 interface, no PyTorch headers: seconds per file instead of the minutes a
@@ -13,7 +13,8 @@ all at once, and waits for them together.
 Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false`. The kernels' exact
 comparisons (the shade kernel's `cross2d == 0` and strict-< argmin ties,
 the depth kernel's `e >= 0` and strict-> argmax, the voxelizer's crossing
-parity) must agree bit for bit with their plain PyTorch versions, which
+parity, the prep kernel's row crossings and bbox tests) must agree bit for
+bit with their plain PyTorch versions, which
 never contract a*b+c into an FMA. A kernel writes `__fmaf_rn` itself where
 a tolerance, not bit parity, holds its result (the voxelizer's distance),
 or where the fused result is exact (the shade forward's correctly rounded

@@ -5,12 +5,14 @@ homan_tpu/render/rasterizer.py.
 
 sign(p) is the winding number of the projected occluding contour (exact,
 hard); d^2 runs over the silhouette-relevant contour edges binned to p's
-tile. The binning prep (`shade_prep`, the counterpart of `_pallas_prep`) runs
-in plain PyTorch and packs, per tile, the first `edges_per_tile` overlapping
-contour edges in edge-index order plus the winding anchors; the shading runs
-in the hand-written CUDA kernel pair of render/shade.py. The tensor's device
-decides the path: CUDA tensors launch the kernels, CPU tensors run their
-plain PyTorch versions.
+tile. The binning prep (`shade_prep`, the counterpart of `_pallas_prep`)
+packs, per tile, the first `edges_per_tile` overlapping contour edges in
+edge-index order plus the winding anchors; on the card its piecewise
+constant part is one hand-written CUDA kernel (csrc/prep.cu, which compacts
+each frame's contour edges before it sweeps rows and bins tiles). The
+shading runs in the hand-written CUDA kernel pair of render/shade.py. The
+tensor's device decides the path: CUDA tensors launch the kernels, CPU
+tensors run their plain PyTorch versions.
 
 Gradients reach the vertices only through the packed segment endpoints
 (rows 0-3 of seg_pack); winding, contour flags and anchors are piecewise
@@ -29,6 +31,7 @@ shade kernels' edge slots from the measured contour-edge demand.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from collections import OrderedDict
 
@@ -36,10 +39,10 @@ import numpy as np
 import torch
 
 from homan_tpu_torch.render.depth import DepthStatic, depth_tiles
-from homan_tpu_torch.render.shade import (FWD_MAX_KE, ShadeStatic,
-                                          fold_batched, shade_tiles,
-                                          unfold_batched)
-from homan_tpu_torch.utils_profiling import count, span
+from homan_tpu_torch.render.shade import (FWD_MAX_KE, ShadeStatic, _check,
+                                          _require_cuda, fold_batched,
+                                          shade_tiles, unfold_batched)
+from homan_tpu_torch.utils_profiling import count, span, tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,74 +279,261 @@ def shade_prep(verts, topo: MeshTopology, K, settings: RasterSettings):
     Returns seg_pack (B, T, 8, Ke) with rows [p0x, p0y, p1x, p1y, sign,
     valid, flip, 0] (empty slots sit 99 units away), anchors (B, T, tp, tp),
     e_demand (B,) the largest per-tile contour-edge count before the Ke
-    truncation, and the kernel's ShadeStatic. Under
+    truncation, and the kernel's ShadeStatic. A CPU tensor runs the plain
+    version (`_shade_prep_plain`); a CUDA tensor the prep kernel
+    (csrc/prep.cu), which builds everything without a gradient, bit-equal
+    to the plain version on the same inputs. Under
     utils_profiling.tracing() the prep is a `raster.prep` span, and the
     counter `raster.contour_edges` counts the contour edges among the edges
-    the anchor sweep and the tile overlap read.
+    the anchor sweep and the tile overlap read: on the CPU every edge of
+    every frame, on the card the entries of the kernel's contour lists,
+    padded to whole warps as its binning reads them.
     """
     with span("raster.prep"):
-        s = settings
-        S, tp = s.image_size, s.tile_px
-        if S % tp:
-            raise ValueError("image_size must be a multiple of tile_px")
+        if verts.device.type == "cpu":
+            return _shade_prep_plain(verts, topo, K, settings)
+        return _shade_prep_kernel(verts, topo, K, settings)
+
+
+def _pack_static(topo: MeshTopology, s: RasterSettings):
+    """What defines the pack, for both paths: the bin margin (NDC units)
+    and the shade kernel's ShadeStatic (Ke at most the mesh's edges)."""
+    S, tp = s.image_size, s.tile_px
+    if S % tp:
+        raise ValueError("image_size must be a multiple of tile_px")
+    margin = s.bin_margin_px / S
+    ke = min(s.edges_per_tile, topo.edges.shape[0])
+    return margin, ShadeStatic(tp, S, S // tp, s.sigma, margin * margin, ke)
+
+
+def _shade_prep_plain(verts, topo: MeshTopology, K, settings: RasterSettings):
+    """shade_prep in plain PyTorch on any device: the CPU path, and the
+    prep kernel's twin on the card."""
+    s = settings
+    margin, static = _pack_static(topo, s)
+    S, tp, g, ke = static.image_size, static.tile_px, static.g, static.ke
+    T = g * g
+    uv, z = project_ndc(verts, K)
+    p0, p1, cross_sign, is_contour, flip = _contour_data(uv, z, topo, s)
+    count("raster.contour_edges", is_contour)
+    B = p0.shape[0]
+    dev = verts.device
+
+    with torch.no_grad():
+        # Winding anchors at tile-column right boundaries over ALL
+        # contour edges: oriented crossings of the +x ray, one (B, S, E)
+        # reduction per tile column.
+        ys_all = (torch.arange(S, device=dev, dtype=torch.float32)
+                  + 0.5) / S
+        y0 = p0[..., 1][:, None, :]
+        y1 = p1[..., 1][:, None, :]
+        py = ys_all[None, :, None]
+        spans = (y0 <= py) != (y1 <= py)
+        dy = y1 - y0
+        t = (py - y0) / torch.where(dy.abs() > 1e-12, dy,
+                                    torch.ones((), device=dev))
+        x_int = p0[..., 0][:, None, :] + t * (p1[..., 0] - p0[..., 0])[
+            :, None, :]
+        zero = torch.zeros((), device=dev)
+        contrib = torch.where(spans, cross_sign[:, None, :], zero)
+        anchors = torch.stack([
+            torch.where(x_int > (gc + 1.0) * tp / S, contrib, zero).sum(-1)
+            for gc in range(g)], dim=1)  # (B, g, S)
+
+        overlap = _tile_overlap(torch.minimum(p0, p1),
+                                torch.maximum(p0, p1), is_contour, s,
+                                margin)  # (B, T, E)
+        e_demand = overlap.sum(-1).amax(-1)
+        binned = _bin_first(overlap, ke)
+        sel_c = _BinnedRows.apply(
+            torch.stack([cross_sign, flip * is_contour], dim=-1), *binned)
+        hitf = binned[1].to(torch.float32)
+        far = 99.0 * (1.0 - hitf)
+
+    # (B, T, ke, 4) endpoints, with gradient
+    sel = _BinnedRows.apply(torch.cat([p0, p1], dim=-1), *binned)
+    seg_pack = torch.stack(
+        [sel[..., 0] + far, sel[..., 1] + far, sel[..., 2] + far,
+         sel[..., 3] + far, sel_c[..., 0], hitf, sel_c[..., 1],
+         torch.zeros_like(hitf)], dim=-2)  # (B, T, 8, ke)
+
+    with torch.no_grad():
+        tile_gx = torch.arange(T, device=dev) % g
+        rows = ((torch.arange(T, device=dev) // g)[:, None] * tp
+                + torch.arange(tp, device=dev)[None])
+        anchor_rows = anchors[:, tile_gx[:, None], rows]  # (B, T, tp)
+        anchor_px = anchor_rows[..., None].expand(
+            B, T, tp, tp).contiguous()
+    return seg_pack, anchor_px, e_demand, static
+
+
+# Launch count of the prep kernel (the plain version does not count).
+prep_launches = 0
+
+# (image_size, tile_px, device) -> the prep kernel's float32 table.
+_PREP_TABLES: dict = {}
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+_FLT = ctypes.c_float
+
+
+def _prep_lib():
+    from homan_tpu_torch import _build
+    lib = _build.load("prep")
+    if lib.shade_prep.argtypes is None:
+        lib.shade_prep.argtypes = ([_PTR] * 6 + [_I64] * 4 + [_PTR]
+                                   + [_INT] * 9 + [_FLT] * 2 + [_PTR] * 11)
+        lib.shade_prep.restype = ctypes.c_int
+    return lib
+
+
+def _prep_table(S: int, tp: int, device):
+    """The row centres (S), the tile bounds t_lo and t_hi along either axis
+    (g each) and the column boundaries (g) the prep kernel compares with,
+    computed by the plain version's own float32 expressions on `device`
+    (its divisions by S included), once per size."""
+    key = (S, tp, str(device))
+    table = _PREP_TABLES.get(key)
+    if table is None:
         g = S // tp
-        T = g * g
-        ke = min(s.edges_per_tile, topo.edges.shape[0])
-        margin = s.bin_margin_px / S
-        cap2 = margin * margin
-        uv, z = project_ndc(verts, K)
-        p0, p1, cross_sign, is_contour, flip = _contour_data(uv, z, topo, s)
-        count("raster.contour_edges", is_contour)
-        B = p0.shape[0]
-        dev = verts.device
+        ys = (torch.arange(S, device=device, dtype=torch.float32) + 0.5) / S
+        t = torch.arange(g, device=device).to(torch.float32)
+        xb = torch.tensor([(gc + 1.0) * tp / S for gc in range(g)],
+                          dtype=torch.float32, device=device)
+        table = torch.cat([ys, t * tp / S, (t + 1) * tp / S, xb])
+        _PREP_TABLES[key] = table
+    return table
 
-        with torch.no_grad():
-            # Winding anchors at tile-column right boundaries over ALL
-            # contour edges: oriented crossings of the +x ray, one (B, S, E)
-            # reduction per tile column.
-            ys_all = (torch.arange(S, device=dev, dtype=torch.float32)
-                      + 0.5) / S
-            y0 = p0[..., 1][:, None, :]
-            y1 = p1[..., 1][:, None, :]
-            py = ys_all[None, :, None]
-            spans = (y0 <= py) != (y1 <= py)
-            dy = y1 - y0
-            t = (py - y0) / torch.where(dy.abs() > 1e-12, dy,
-                                        torch.ones((), device=dev))
-            x_int = p0[..., 0][:, None, :] + t * (p1[..., 0] - p0[..., 0])[
-                :, None, :]
-            zero = torch.zeros((), device=dev)
-            contrib = torch.where(spans, cross_sign[:, None, :], zero)
-            anchors = torch.stack([
-                torch.where(x_int > (gc + 1.0) * tp / S, contrib, zero).sum(-1)
-                for gc in range(g)], dim=1)  # (B, g, S)
 
-            overlap = _tile_overlap(torch.minimum(p0, p1),
-                                    torch.maximum(p0, p1), is_contour, s,
-                                    margin)  # (B, T, E)
-            e_demand = overlap.sum(-1).amax(-1)
-            binned = _bin_first(overlap, ke)
-            sel_c = _BinnedRows.apply(
-                torch.stack([cross_sign, flip * is_contour], dim=-1), *binned)
-            hitf = binned[1].to(torch.float32)
-            far = 99.0 * (1.0 - hitf)
+def _prep_launch(uv, verts, faces, edges, edge_faces, edge_dir, fpt, S, tp,
+                 ke, znear, margin):
+    """Launch the prep kernel. uv (B, V, 2) and verts (B, V, 3) float32;
+    each topology tensor shared ((F, 3), (E, 2), (E, 2), (E,)) or with a
+    leading topology dim nt, frame b taking topology (b // fpt) % nt.
+    Returns anchor_px (B, T, tp, tp), e_demand (B,), idx, hit (B, T, Ke),
+    slot_of (B, T, E), pack_c (B, T, 4, Ke) (seg_pack's rows 4-7), far
+    (B, T, Ke, 1) and the counter's n_contour, n_read (B,) int32."""
+    _require_cuda(uv)
+    global prep_launches
+    dev = uv.device
+    uv = uv.contiguous()
+    verts = verts.contiguous()
+    B, V = uv.shape[:2]
+    _check("uv", uv, (B, V, 2), torch.float32, dev)
+    _check("verts", verts, (B, V, 3), torch.float32, dev)
+    topo = [t.to(device=dev, dtype=torch.int64).contiguous()
+            for t in (faces, edges, edge_faces)]
+    topo.append(edge_dir.to(device=dev, dtype=torch.bool).contiguous())
+    per_topo = [t.dim() == d + 1 for t, d in zip(topo, (2, 2, 2, 1))]
+    nts = {t.shape[0] for t, p in zip(topo, per_topo) if p}
+    if len(nts) > 1:
+        raise ValueError(f"topology tensors of {sorted(nts)} topologies")
+    nt = nts.pop() if nts else 1
+    F, E = topo[0].shape[-2], topo[1].shape[-2]
+    fpt = max(B // nt, 1) if fpt is None else fpt
+    g = S // tp
+    T = g * g
+    if T * E >= 2 ** 31 or S * S >= 2 ** 31:
+        raise ValueError(f"the prep kernel takes T E and S^2 below 2^31, "
+                         f"got T {T}, E {E}, S {S}")
+    i64 = dict(dtype=torch.int64, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty((B, T, tp, tp), **f32), torch.empty((B,), **i64),
+           torch.empty((B, T, ke), **i64),
+           torch.empty((B, T, ke), dtype=torch.bool, device=dev),
+           torch.empty((B, T, E), **i64), torch.empty((B, T, 4, ke), **f32),
+           torch.empty((B, T, ke, 1), **f32),
+           torch.empty((B,), dtype=torch.int32, device=dev),
+           torch.empty((B,), dtype=torch.int32, device=dev))
+    if B == 0:
+        return out
+    anchors = torch.empty((B, g, S), dtype=torch.int32, device=dev)
+    table = _prep_table(S, tp, dev)
+    strides = [t.stride(0) if p else 0 for t, p in zip(topo, per_topo)]
+    lib = _prep_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.shade_prep(uv.data_ptr(), verts.data_ptr(),
+                            *(t.data_ptr() for t in topo), *strides,
+                            table.data_ptr(), B, nt, fpt, V, F, E, S, tp, ke,
+                            znear, margin, anchors.data_ptr(),
+                            *(o.data_ptr() for o in out), stream)
+    if rc == -1:
+        raise RuntimeError(f"shade_prep kernel launch failed: {F} faces and "
+                           f"{T} tiles leave no room in shared memory")
+    if rc != 0:
+        raise RuntimeError(f"shade_prep kernel launch failed: CUDA error {rc}")
+    prep_launches += 1
+    return out
 
-        # (B, T, ke, 4) endpoints, with gradient
-        sel = _BinnedRows.apply(torch.cat([p0, p1], dim=-1), *binned)
-        seg_pack = torch.stack(
-            [sel[..., 0] + far, sel[..., 1] + far, sel[..., 2] + far,
-             sel[..., 3] + far, sel_c[..., 0], hitf, sel_c[..., 1],
-             torch.zeros_like(hitf)], dim=-2)  # (B, T, 8, ke)
 
-        with torch.no_grad():
-            tile_gx = torch.arange(T, device=dev) % g
-            rows = ((torch.arange(T, device=dev) // g)[:, None] * tp
-                    + torch.arange(tp, device=dev)[None])
-            anchor_rows = anchors[:, tile_gx[:, None], rows]  # (B, T, tp)
-            anchor_px = anchor_rows[..., None].expand(
-                B, T, tp, tp).contiguous()
-        static = ShadeStatic(tp, S, g, s.sigma, cap2, ke)
-        return seg_pack, anchor_px, e_demand, static
+class _PrepKernel(torch.autograd.Function):
+    """The prep kernel as an op torch.func.vmap can batch: the vmapped clip
+    dim folds into the frame dim, one launch for every clip. A topology
+    tensor batched at that level keeps its clip dim (a topology per clip,
+    the frames of one clip per topology); one shared by the clips is read
+    by all. No gradient."""
+
+    @staticmethod
+    def forward(uv, verts, faces, edges, edge_faces, edge_dir, fpt, S, tp,
+                ke, znear, margin):
+        return _prep_launch(uv, verts, faces, edges, edge_faces, edge_dir,
+                            fpt, S, tp, ke, znear, margin)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * 12
+
+    @staticmethod
+    def vmap(info, in_dims, uv, verts, faces, edges, edge_faces, edge_dir,
+             fpt, *static):
+        n = info.batch_size
+        frames = []
+        for t, d in zip((uv, verts), in_dims[:2]):
+            t = t.movedim(d, 0) if d is not None else t[None].expand(
+                (n,) + tuple(t.shape))
+            frames.append(t)
+        topo = (faces, edges, edge_faces, edge_dir)
+        if any(d is not None for d in in_dims[2:6]):
+            if fpt is not None:
+                raise NotImplementedError(
+                    "the prep kernel takes topology batched at one vmap "
+                    "level")
+            fpt = frames[0].shape[1]
+            topo = tuple(t if d is None else t.movedim(d, 0)
+                         for t, d in zip(topo, in_dims[2:6]))
+        uv, verts = (t.reshape((-1,) + tuple(t.shape[2:])) for t in frames)
+        return unfold_batched(n, _PrepKernel.apply(uv, verts, *topo, fpt,
+                                                   *static))
+
+
+def _shade_prep_kernel(verts, topo: MeshTopology, K,
+                       settings: RasterSettings):
+    """shade_prep on the card: the projection and the endpoints' gather
+    into their slots carry the gradient as in the plain version; the prep
+    kernel gives everything else."""
+    _require_cuda(verts)
+    s = settings
+    margin, static = _pack_static(topo, s)
+    uv, _ = project_ndc(verts, K)
+    seg = uv[:, topo.edges]  # (B, E, 2, 2)
+    with torch.no_grad():
+        anchor_px, e_demand, idx, hit, slot_of, pack_c, far, n_c, n_r = \
+            _PrepKernel.apply(uv.detach(), verts.detach(), topo.faces,
+                              topo.edges, topo.edge_faces, topo.edge_dir_f1,
+                              None, static.image_size, static.tile_px,
+                              static.ke, s.znear, margin)
+        tally("raster.contour_edges", n_c, n_r)
+    sel = _BinnedRows.apply(torch.cat([seg[:, :, 0], seg[:, :, 1]], dim=-1),
+                            idx, hit, slot_of)  # (B, T, ke, 4)
+    seg_pack = torch.cat([(sel + far).transpose(2, 3), pack_c], dim=2)
+    return seg_pack, anchor_px, e_demand, static
 
 
 def rasterize_soft(verts, topology, K,

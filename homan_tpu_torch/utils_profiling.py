@@ -9,8 +9,9 @@ Spans and counters record only inside `tracing()`, and are off by default.
 A span is a `torch.profiler.record_function` range, so it lands in the same
 profiler trace as the device's kernels, on the trace's clock; off, `span`
 returns a shared null context after one boolean test. A counter adds a
-mask's nonzero count and its size to accumulators on the mask's device,
-with no host sync; `counters()` reads and resets them. Tracing changes no
+mask's nonzero count and its size (`count`), or the sums of a kernel's own
+count and total tensors (`tally`), to accumulators on the device, with no
+host sync; `counters()` reads and resets them. Tracing changes no
 value the program computes.
 
 Device traces come from `torch.profiler` in place of the JAX package's
@@ -29,7 +30,8 @@ import torch
 
 _tracing = False
 _NULL = contextlib.nullcontext()
-# (counter name, device) -> [nonzero count (a device tensor), elements]
+# (counter name, device) -> [hits (a device tensor), total (an int or a
+# device tensor)]
 _counts: Dict[Tuple[str, torch.device], list] = {}
 
 
@@ -65,19 +67,32 @@ def physical(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _add(name: str, device, hits, n) -> None:
+    acc = _counts.get((name, device))
+    if acc is None:
+        _counts[(name, device)] = [hits, n]
+    else:
+        acc[0] = acc[0] + hits
+        acc[1] = acc[1] + n
+
+
 def count(name: str, mask: torch.Tensor) -> None:
     """While tracing is on, add mask's nonzero entries and its size to
     counter `name`; under vmap every vmapped entry counts."""
     if not _tracing:
         return
     x = physical(mask)
-    hits = torch.count_nonzero(x)
-    acc = _counts.get((name, x.device))
-    if acc is None:
-        _counts[(name, x.device)] = [hits, x.numel()]
-    else:
-        acc[0] = acc[0] + hits
-        acc[1] += x.numel()
+    _add(name, x.device, torch.count_nonzero(x), x.numel())
+
+
+def tally(name: str, hits: torch.Tensor, total: torch.Tensor) -> None:
+    """While tracing is on, add the sum of hits' entries and the sum of
+    total's to counter `name`: counts a kernel wrote (one a frame, say),
+    summed on their device; under vmap every vmapped entry counts."""
+    if not _tracing:
+        return
+    h, n = physical(hits), physical(total)
+    _add(name, h.device, h.sum(), n.sum())
 
 
 def counters() -> Dict[str, Tuple[int, int]]:
@@ -89,7 +104,7 @@ def counters() -> Dict[str, Tuple[int, int]]:
     out: Dict[str, Tuple[int, int]] = {}
     for (name, _), (hits, n) in _counts.items():
         h0, n0 = out.get(name, (0, 0))
-        out[name] = (h0 + int(hits), n0 + n)
+        out[name] = (h0 + int(hits), n0 + int(n))
     _counts.clear()
     return out
 

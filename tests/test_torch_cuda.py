@@ -175,6 +175,137 @@ def test_rasterize_soft_gradient_on_card_matches_cpu(cuda):
     assert np.abs(grads[1] - grads[0]).max() <= 3e-3 * scale
 
 
+def _prep_both(verts, topo, K, settings):
+    """The prep kernel's path and the plain version on the same CUDA
+    inputs: (seg_pack, anchors, e_demand) of each, and (idx, hit, slot_of)
+    of each (the kernel's through `_prep_launch`, the plain version's
+    through its own pieces)."""
+    s = settings
+    S, tp = s.image_size, s.tile_px
+    ke = min(s.edges_per_tile, topo.edges.shape[0])
+    margin = s.bin_margin_px / S
+    n0 = tr.prep_launches
+    with torch.no_grad():
+        kern = tr.shade_prep(verts, topo, K, s)
+        plain = tr._shade_prep_plain(verts, topo, K, s)
+        uv, z = tr.project_ndc(verts, K)
+        k_bins = tr._prep_launch(uv, verts, topo.faces, topo.edges,
+                                 topo.edge_faces, topo.edge_dir_f1, None, S,
+                                 tp, ke, s.znear, margin)[2:5]
+        p0, p1, _, is_contour, _ = tr._contour_data(uv, z, topo, s)
+        overlap = tr._tile_overlap(torch.minimum(p0, p1),
+                                   torch.maximum(p0, p1), is_contour, s,
+                                   margin)
+        p_bins = tr._bin_first(overlap, ke)
+    assert tr.prep_launches == n0 + 2
+    assert kern[3] == plain[3]
+    return kern[:3], plain[:3], k_bins, p_bins
+
+
+def _assert_prep_equal(verts, topo, K, settings):
+    kern, plain, k_bins, p_bins = _prep_both(verts, topo, K, settings)
+    for name, a, b in zip(("seg_pack", "anchors", "e_demand", "idx", "hit",
+                           "slot_of"), kern + k_bins, plain + p_bins):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    return plain[2]
+
+
+# (mesh, image size, tile, edges per tile): S 128, 256 and 640, tile 64 and
+# one tile; Ke below the demand (the first Ke of each tile binned, the rest
+# counted) and above it. Frame 0 has a vertex behind znear, frame 1 no
+# contour edge; the flat grid's rows project to horizontal edges. S 120 at
+# tile 40: a size that is no power of two (the column boundaries and tile
+# bounds round), and a tile width that is no multiple of 4 (anchor_px
+# stored a float at a time).
+PREP_CASES = [("object", 128, 64, 96), ("object", 256, 64, 8),
+              ("object", 640, 64, 96), ("object", 256, 256, 16),
+              ("hand", 128, 128, 512), ("hand", 256, 64, 16),
+              ("hand", 640, 64, 192), ("flat", 128, 64, 96),
+              ("flat", 640, 640, 8), ("object", 120, 40, 96)]
+
+
+@pytest.mark.parametrize("case", PREP_CASES)
+def test_prep_kernel_matches_plain(cuda, case):
+    from prep_cases import scene
+    kind, S, tp, ke = case
+    verts, faces, K = scene(kind)
+    topo = tr.MeshTopology.from_faces(faces, device=cuda)
+    demand = _assert_prep_equal(verts.to(cuda), topo, K.to(cuda),
+                                tr.RasterSettings(S, tile_px=tp,
+                                                  edges_per_tile=ke))
+    assert int(demand[0]) > 0 and int(demand[1]) == 0
+    assert (ke < int(demand.max())) == (ke in (8, 16))
+
+
+def test_prep_kernel_walks_edges_in_chunks(cuda):
+    """A mesh of more edges than one block's shared list holds: the kernel
+    walks them in chunks, each chunk's list in turn."""
+    from prep_cases import scene
+    verts, faces, K = scene("dense")
+    topo = tr.MeshTopology.from_faces(faces, device=cuda)
+    S, tp = 256, 64
+    E, F = topo.edges.shape[0], topo.faces.shape[0]
+    assert E > tr._prep_lib().shade_prep_list_cap(E, (S // tp) ** 2, F)
+    for ke in (64, 1024):
+        _assert_prep_equal(verts.to(cuda), topo, K.to(cuda),
+                           tr.RasterSettings(S, tile_px=tp,
+                                             edges_per_tile=ke))
+
+
+def test_prep_kernel_under_vmap_with_per_clip_topology(cuda):
+    """As step1_mixed runs it: clips of padded meshes, each its own
+    topology, folded into one launch; bit-equal to the plain version under
+    vmap and clip by clip, and the counter's contour edges equal."""
+    from homan_tpu_torch import utils_profiling as up
+    from prep_cases import clip_topologies
+    verts, topo, K = clip_topologies()
+    verts, K = verts.to(cuda), K.to(cuda)
+    topo = tuple(t.to(cuda) for t in topo)
+    st = tr.RasterSettings(256, tile_px=64, edges_per_tile=96)
+
+    def run(prep):
+        return torch.func.vmap(
+            lambda v, *t: prep(v, tr.MeshTopology(*t), K, st)[:3])(verts,
+                                                                  *topo)
+
+    n0 = tr.prep_launches
+    with up.tracing():
+        kern = run(tr.shade_prep)
+        counted = up.counters()["raster.contour_edges"]
+        plain = run(tr._shade_prep_plain)
+        total = up.counters()["raster.contour_edges"]
+    assert tr.prep_launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    for c in range(verts.shape[0]):
+        one = tr._shade_prep_plain(
+            verts[c], tr.MeshTopology(*(t[c] for t in topo)), K, st)
+        assert all(torch.equal(kern[j][c], one[j]) for j in range(3))
+    assert counted[0] == total[0] > 0
+    assert counted[0] <= counted[1] < total[1]
+
+
+def test_rasterize_soft_gradient_equal_on_both_prep_paths(cuda,
+                                                          monkeypatch):
+    """The gradient of a loss through rasterize_soft, the prep kernel's
+    path against the plain prep's on the card: bit-equal."""
+    from prep_cases import scene
+    verts, faces, K = scene("hand", edge_cases=False)
+    topo = tr.MeshTopology.from_faces(faces, device=cuda)
+    settings = tr.RasterSettings(128, tile_px=64, edges_per_tile=128)
+    grads, sils = [], []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tr, "shade_prep", tr._shade_prep_plain)
+        v = verts.to(cuda).requires_grad_(True)
+        out = tr.rasterize_soft(v, topo, K.to(cuda), settings)
+        ((out["sil"] - 0.3) ** 2).sum().backward()
+        grads.append(v.grad)
+        sils.append(out["sil"].detach())
+    assert torch.equal(sils[0], sils[1])
+    assert torch.equal(grads[0], grads[1])
+    assert grads[0].abs().max().item() > 0
+
+
 # (mesh, image size, tile, faces per tile), or ("adversarial", image size,
 # tile, seed[, faces inside nowhere put first]): the hand at tile 16 holds
 # ~1,000 faces per tile, so the kernel's staging passes (128 slots a pass)

@@ -356,8 +356,8 @@ def test_every_kernel_source_is_built():
     """Every csrc/ of the package is built; each kernel's library is keyed
     by its own source."""
     from homan_tpu_torch import _build
-    assert _build.sources() == ["depth", "shade", "voxelize"]
+    assert _build.sources() == ["depth", "prep", "shade", "voxelize"]
     paths = {name: _build._lib_path(name) for name in _build.sources()}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     assert all(os.path.basename(p).startswith(n + "-")
                for n, p in paths.items())

@@ -161,6 +161,24 @@ def test_counters_accumulate_and_reset():
         assert up.counters() == {}
 
 
+def test_tally_takes_a_count_and_a_total():
+    """tally, the counter entry a kernel's own per-frame counts feed: off
+    while tracing is off, summed with count's entries while on, under vmap
+    every vmapped entry."""
+    hits = torch.tensor([3, 0, 5], dtype=torch.int32)
+    total = torch.tensor([32, 0, 32], dtype=torch.int32)
+    up.counters()
+    up.tally("x", hits, total)
+    assert up.counters() == {}
+    with up.tracing():
+        up.tally("x", hits, total)
+        up.count("x", torch.tensor([True, False]))
+        torch.func.vmap(lambda h, t: up.tally("x", h, t) or h)(
+            hits.reshape(3, 1), total.reshape(3, 1))
+        assert up.counters() == {"x": (17, 130)}
+        assert up.counters() == {}
+
+
 def test_stage_timer_opens_its_span():
     timers = up.StageTimers()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
