@@ -8,10 +8,12 @@ fit of a cell's batch at the cell's own size, on many seeds in one process
 
 Modes: `sound`, the program as the configuration states it; `tf32`, the
 lower-precision control (TF32 switched on after the port is imported);
-`half_update`, a fault: every optimizer step applied to the first half of
-the clips only. Prints one JSON line per seed and mode: the figures beside
-their limits, whether a run would read `correct`, and the details. It runs
-no measured window and prints no benchmark result.
+and each fault of the cell's recipe (its faults(); joint_fit's
+`half_update` applies every optimizer step to the first half of the clips
+only). The recipe (recipes/) makes the inputs, fits and compares, as a run
+does. Prints one JSON line per seed and mode: the figures beside their
+limits, whether a run would read `correct`, and the details. It runs no
+measured window and prints no benchmark result.
 """
 import argparse
 import contextlib
@@ -20,35 +22,7 @@ import os
 import sys
 import time
 
-MODES = ("sound", "tf32", "half_update")
-
-
-@contextlib.contextmanager
-def half_update():
-    """Every optimizer step applied to the first half of the clips only
-    (the leaves' leading axis, rounded down): the others keep their
-    leaves."""
-    import torch
-    from torch.optim.optimizer import (register_optimizer_step_post_hook,
-                                       register_optimizer_step_pre_hook)
-    kept = []
-
-    def pre(optimizer, args, kwargs):
-        kept[:] = [(p, p.detach()[p.shape[0] // 2:].clone())
-                   for g in optimizer.param_groups for p in g["params"]]
-
-    def post(optimizer, args, kwargs):
-        with torch.no_grad():
-            for p, old in kept:
-                p[p.shape[0] // 2:] = old
-
-    hooks = [register_optimizer_step_pre_hook(pre),
-             register_optimizer_step_post_hook(post)]
-    try:
-        yield
-    finally:
-        for h in hooks:
-            h.remove()
+MODES = ("sound", "tf32")
 
 
 def read(workload, cfg, traffic, seed, mode, dev):
@@ -56,56 +30,40 @@ def read(workload, cfg, traffic, seed, mode, dev):
     detail, seconds}."""
     import torch
     import homan_tpu_torch  # noqa: F401  (switches TF32 off on import)
-    from homan_tpu_torch.parallel.clips import fit_clips_batched
-    from portbench import compare, harness, scene
+    from portbench import harness
 
     def precision(tf32):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
 
     t0 = time.perf_counter()
-    B, C = int(cfg["frames"]), int(traffic["clips"])
+    recipe = harness.load_recipe(cfg["recipe"])
     precision(False)
-    state, consts, info = scene.make_clips(cfg, traffic, seed, dev)
-    ke, demand = harness.edge_slots(state, consts, cfg, B)
-    states, pconsts, pcfg, settings, hand_faces = harness.program_inputs(
-        state, consts, info, cfg, ke)
-    lw = dict(cfg["loss_weights"])
-    steps, lr = int(cfg["steps"]), float(cfg["lr"])
+    inputs = recipe.prepare(cfg, traffic, seed, dev)
     precision(mode == "tf32")
-    fault = (half_update() if mode == "half_update"
-             else contextlib.nullcontext())
+    fault = (contextlib.nullcontext() if mode in MODES
+             else recipe.faults()[mode]())
     with fault:
-        final, hist = fit_clips_batched(
-            states, pconsts, pcfg, loss_weights=lw, num_iterations=steps,
-            lr=lr, roi_settings=settings, closed_hand_faces=hand_faces,
-            device=dev)
-    failed = int((~(torch.isfinite(hist["loss"]).all(1)
-                    & torch.isfinite(final.translations_object).reshape(
-                        C, -1).all(1))).sum())
-    port_hist = {k: v.detach() for k, v in hist.items()}
-    del final, hist, states, pconsts
+        out = recipe.fit(inputs, int(cfg["steps"]))
+    failed = int((~recipe.finite(out)).sum())
+    recipe.release(inputs)
     precision(False)
-    gen = torch.Generator().manual_seed(int(seed))
-    sample = sorted(torch.randperm(C, generator=gen)[
-        :int(traffic["check_clips"])].tolist())
-    figures, detail = compare.run(port_hist, state, consts,
-                                  harness.recipe_constants(cfg), lw,
-                                  int(cfg["check_steps"]), lr, sample)
+    figures, detail = recipe.compare(out, inputs, cfg, traffic, seed)
     limits = dict(cfg["checks"])
     correct = (all(figures[k] <= v for k, v in limits.items())
                and failed == 0)
     return {"workload": workload, "seed": seed, "mode": mode,
             "correct": correct, "figures": figures, "limits": limits,
-            "failed": failed, "ke": ke, "demand": demand, "sample": sample,
-            "detail": detail, "seconds": time.perf_counter() - t0}
+            "failed": failed, "detail": detail,
+            "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--modes", nargs="+", choices=MODES, default=["sound"])
+    p.add_argument("--modes", nargs="+", default=["sound"],
+                   help="sound, tf32 or a fault of the cell's recipe")
     args = p.parse_args(argv)
     # The caches of run.py, at the same fixed paths inside the checkout.
     root, here = os.getcwd(), os.path.dirname(os.path.abspath(__file__))
@@ -119,6 +77,10 @@ def main(argv=None):
     from portbench import harness
     _, cfg, traffic = harness.load_cell(harness.load_benchmark(root), root,
                                         args.workload)
+    known = MODES + tuple(harness.load_recipe(cfg["recipe"]).faults())
+    unknown = [m for m in args.modes if m not in known]
+    if unknown:
+        p.error(f"unknown modes {unknown}; this cell's are {list(known)}")
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)

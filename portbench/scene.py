@@ -13,7 +13,8 @@ Every random number comes from one torch.Generator on the device, seeded
 with the run's seed, drawn for all clips at once. The object meshes and the
 hand model are fixed by the configuration, as a dataset's meshes and the
 MANO model are. The inputs are returned in the reference's layout
-(reference/losses.py); harness.py hands the same tensors to the program.
+(reference/losses.py); recipes/joint_fit.py hands the same tensors to
+the program.
 """
 from __future__ import annotations
 

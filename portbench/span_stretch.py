@@ -3,15 +3,16 @@ counters (homan_tpu_torch/utils_profiling.py) on, for the per-layer
 metrics of the fit loop, the raster prep and the interactions layer.
 
 The first stretch (harness.py) is the last `trace_steps` steps of the
-window's first fit with CUDA activity alone and the program's tracing off.
-This one is the same fit once more, after the window and the comparison:
-the cell's inputs made again from the same seed, the recipe's full fit,
-and its last `trace_steps` steps under torch.profiler with CPU and CUDA
-activity and `tracing()` on, selected by the same global optimizer step
-hook (the profile itself stops once the fit has returned). The first of
-its metrics to be read runs it and keeps the result on the reading's
-context; the others read that. Without a card, or with a program that has
-no tracing switch, there is no stretch and its metrics read nothing.
+window's first fit with CUDA activity alone and the program's tracing
+off. This one is the same fit once more, after the window and the
+comparison: the cell's inputs made again from the same seed by its
+recipe's prepare, the recipe's full fit, and its last `trace_steps`
+optimizer steps under torch.profiler with CPU and CUDA activity and
+`tracing()` on, selected by the same global optimizer step hook (the
+profile itself stops once the fit has returned). The first of its
+metrics to be read runs it and keeps the result on the reading's
+context; the others read that. Without a card, or with a program that
+has no tracing switch, there is no stretch and its metrics read nothing.
 
 It prints one `spans:` line on standard error: the accounting of
 yardstick/spans.py (device and idle seconds by span), the program's
@@ -21,11 +22,10 @@ cost of tracing when on.
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 
-from portbench import harness, scene
+from portbench import harness
 from portbench.yardstick import spans as S
 
 # A range around the stretch, so its bounds are read on the trace's clock.
@@ -98,9 +98,10 @@ def events(prof):
 
 
 def run(ctx):
-    """Run the stretch for the cell named on the command line; returns
-    the accounting with `counters`, `ms_per_step` and `first_ms_per_step`
-    (None without a card or without the program's tracing switch)."""
+    """Run the stretch for the cell of the reading's context (its recipe,
+    cfg, traffic, seed and device); returns the accounting with
+    `counters`, `ms_per_step` and `first_ms_per_step` (None without a card
+    or without the program's tracing switch)."""
     import torch
     if not torch.cuda.is_available():
         return None
@@ -110,26 +111,13 @@ def run(ctx):
               file=sys.stderr, flush=True)
         return None
     from torch.optim.optimizer import register_optimizer_step_post_hook
-    from homan_tpu_torch.parallel.clips import fit_clips_batched
-    from portbench.run import parse
-    args = parse(sys.argv[1:])
-    root = os.getcwd()
-    _, cfg, traffic = harness.load_cell(harness.load_benchmark(root), root,
-                                        args.workload)
-    dev = torch.device("cuda", 0)
-    state, consts, info = scene.make_clips(cfg, traffic, args.seed, dev)
-    ke, _ = harness.edge_slots(state, consts, cfg, int(cfg["frames"]))
-    states, pconsts, pcfg, settings, hand_faces = harness.program_inputs(
-        state, consts, info, cfg, ke)
-    steps, n = int(cfg["steps"]), int(cfg["trace_steps"])
-    stretch = SpanStretch(steps, n, utils_profiling)
+    recipe, cfg = ctx.recipe, ctx.cfg
+    inputs = recipe.prepare(cfg, ctx.traffic, ctx.seed, ctx.device)
+    n = int(cfg["trace_steps"])
+    stretch = SpanStretch(recipe.optimizer_steps(cfg), n, utils_profiling)
     hook = register_optimizer_step_post_hook(stretch)
     try:
-        fit_clips_batched(states, pconsts, pcfg,
-                          loss_weights=dict(cfg["loss_weights"]),
-                          num_iterations=steps, lr=float(cfg["lr"]),
-                          roi_settings=settings, closed_hand_faces=hand_faces,
-                          device=dev)
+        recipe.fit(inputs, int(cfg["steps"]))
     finally:
         hook.remove()
     if stretch.t1 is None:

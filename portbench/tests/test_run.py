@@ -83,7 +83,7 @@ def _half_batch(real, states, args, kwargs):
 
 def _half_update(real, states, args, kwargs):
     """Every optimizer step applied to half of the clips only."""
-    from portbench.readings import half_update
+    from portbench.recipes.joint_fit import half_update
     with half_update():
         return real(states, *args, **kwargs)
 

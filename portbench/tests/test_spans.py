@@ -143,12 +143,13 @@ def test_events_of_a_traced_fit_on_the_cpu():
     from homan_tpu_torch import utils_profiling
     from homan_tpu_torch.parallel.clips import fit_clips_batched
     from portbench import scene
+    from portbench.recipes import joint_fit
     from portbench.tests import tiny
     _, cfg, traffic = tiny.cell("step1_batch")
     traffic["clips"] = 2
     state, consts, info = scene.make_clips(cfg, traffic, 9, "cpu")
-    ke, _ = harness.edge_slots(state, consts, cfg, cfg["frames"])
-    states, pconsts, pcfg, settings, hand_faces = harness.program_inputs(
+    ke, _ = joint_fit.edge_slots(state, consts, cfg, cfg["frames"])
+    states, pconsts, pcfg, settings, hand_faces = joint_fit.program_inputs(
         state, consts, info, cfg, ke)
     with utils_profiling.tracing():
         with profile(activities=[ProfilerActivity.CPU]) as prof:

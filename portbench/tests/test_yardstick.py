@@ -114,3 +114,32 @@ def test_readers():
     assert read["voxelize_share"](ctx) is None
     assert read["step_mfu"](ctx) == pytest.approx(
         100 * 20100 / (5e-6 * peaks.FP32_OPS_PER_S))
+
+
+def test_readers_without_a_workloads_list_read_nothing_from_nothing():
+    """A recipe whose work and trace hold nothing for a reader: every
+    per-layer reader that any cell runs returns None and does not raise.
+    Where the trace holds the shade kernels but the recipe counted no work
+    for them, their rooflines raise, and the other readers return None."""
+    from portbench import harness
+    from portbench.tests import tiny
+    bench = harness.load_benchmark(tiny.ROOT)
+    names = [m["name"] for m in bench["per_layer"] if "workloads" not in m]
+    assert "step_mfu" in names and "shade_fwd_roofline" in names
+    empty = types.SimpleNamespace(ops=[], launches=0, window_s=1.0, steps=10,
+                                  busy_s=0.0, work={}, spans=None)
+    ops = [("void shade_fwd_kernel<8>(...)", 0, 1000),
+           ("void shade_bwd_strip_kernel(...)", 1000, 1500)]
+    uncounted = types.SimpleNamespace(
+        ops=ops, launches=40, window_s=5e-6, steps=1,
+        busy_s=trace.busy_s(ops), work={}, spans={
+            "under": {}, "idle_under": {}, "counters": {},
+            "busy_s": 1.0, "wall_s": 1.0})
+    for name in names:
+        read = harness.load_reader(name)
+        assert read(empty) is None, name
+        if name in ("shade_fwd_roofline", "shade_bwd_roofline"):
+            with pytest.raises(KeyError, match="counts no"):
+                read(uncounted)
+        elif name not in ("idle_share", "launch_calls_per_step"):
+            assert read(uncounted) is None, name
